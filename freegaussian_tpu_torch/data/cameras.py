@@ -62,5 +62,11 @@ class Camera:
         )
 
     @property
+    def c2w_opencv(self) -> torch.Tensor:
+        """(3, 4) camera-to-world in the OpenCV convention (y and z columns flipped)."""
+        flip = torch.tensor([1.0, -1.0, -1.0], dtype=self.c2w.dtype, device=self.c2w.device)
+        return torch.cat([self.c2w[..., :3, :3] * flip, self.c2w[..., :3, 3:4]], dim=-1)
+
+    @property
     def position(self) -> torch.Tensor:
         return self.c2w[..., :3, 3]

@@ -15,6 +15,12 @@ bias. With compute_dtype=bfloat16 the rounding points are then the JAX
 package's; what remains is the f32 accumulation order inside each product.
 Every f32 product (the heads, and the trunk in f32 mode) is held to full
 f32 on the GPU (no TF32).
+
+With `fused=True` (bf16, 8x256, one shared frame time) the embedding, the
+trunk and the heads run as one kernel pair instead (`ops/mlp_cuda.py`, the
+port of the JAX package's `deform_apply_fused(impl="fused")`): bf16 product
+operands with f32 accumulation and bf16-stored activations, the numerics of
+`mlp_pallas.py`; the timenet and the screw-axis normalization stay here.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.math import positional_embed, safe_norm
+from ..ops.mlp_cuda import deform_field
 
 HEAD_NAMES = ("branch_w", "branch_v", "gaussian_rotation", "gaussian_scaling")
 
@@ -102,8 +109,12 @@ class DeformField(nn.Module):
         multires: int = 10,
         is_blender: bool = True,
         compute_dtype: torch.dtype = torch.float32,
+        fused: bool = False,
     ):
         super().__init__()
+        if fused and (depth, width, compute_dtype) != (8, 256, torch.bfloat16):
+            raise ValueError(f"the fused deform field is 8x256 bf16, got {depth}x{width} {compute_dtype}")
+        self.fused = fused
         self.depth = depth
         self.multires = multires
         self.is_blender = is_blender
@@ -120,10 +131,13 @@ class DeformField(nn.Module):
             [_new_linear(in_ch, width)]
             + [_new_linear(width + in_ch if i == self.skip_at else width, width) for i in range(depth - 1)]
         )
-        self.branch_w = _new_linear(width, 3)
-        self.branch_v = _new_linear(width, 3)
-        self.gaussian_rotation = _new_linear(width, 4)
-        self.gaussian_scaling = _new_linear(width, 3)
+        # the skip follows layer depth // 2: for depth <= 2 that is the last
+        # layer, and the heads see [x_emb, t_emb, h]
+        head_in = width + in_ch if self.skip_at == depth - 1 else width
+        self.branch_w = _new_linear(head_in, 3)
+        self.branch_v = _new_linear(head_in, 3)
+        self.gaussian_rotation = _new_linear(head_in, 4)
+        self.gaussian_scaling = _new_linear(head_in, 3)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor):
         """x: (N, 3) canonical means; t: (1, 1) shared frame time or (N, 1).
@@ -139,6 +153,28 @@ class DeformField(nn.Module):
             t0, t2 = self.timenet[0], self.timenet[2]
             t_emb = F.relu(_linear(t_emb, t0.weight, t0.bias, ct))
             t_emb = _linear(t_emb, t2.weight, t2.bias, ct)
+        heads = [getattr(self, n) for n in HEAD_NAMES]
+        w_all = torch.cat([hd.weight for hd in heads], dim=0)
+        b_all = torch.cat([hd.bias for hd in heads], dim=0)
+        if self.fused:
+            if t_emb.shape[0] != 1:
+                raise ValueError("the fused deform field takes one shared frame time")
+            y = deform_field(
+                x, t_emb[0], [l.weight for l in self.linear], [l.bias for l in self.linear], w_all, b_all
+            )
+        else:
+            y = self._split_forward(x, t_emb, w_all, b_all)
+        w, v, rotation, scaling = y[:, 0:3], y[:, 3:6], y[:, 6:10], y[:, 10:13]
+        theta = safe_norm(w, dim=-1, keepdim=True)
+        # Reference quirk kept verbatim: the 1e-5 is added after the division.
+        w = w / theta + 1e-5
+        v = v / theta + 1e-5
+        return SE3Screw(w=w, v=v, theta=theta), rotation, scaling
+
+    def _split_forward(self, x, t_emb, w_all, b_all):
+        """The trunk as split linears in the compute dtype, then the four
+        heads as one (13, fan_in) f32 product. Returns (N, 13) f32."""
+        ct = self.compute_dtype
         t_emb = t_emb.expand(x.shape[0], t_emb.shape[-1])
         x_emb = positional_embed(x, self.multires)
         x_emb = x_emb.to(ct)
@@ -152,15 +188,4 @@ class DeformField(nn.Module):
         if isinstance(h, torch.Tensor):
             h = [h]
         h = [a.float() for a in h]
-
-        # the four heads as one (13, fan_in) f32 product
-        heads = [getattr(self, n) for n in HEAD_NAMES]
-        w_all = torch.cat([hd.weight for hd in heads], dim=0)
-        b_all = torch.cat([hd.bias for hd in heads], dim=0)
-        y = _linear(h, w_all, b_all, torch.float32)
-        w, v, rotation, scaling = y[:, 0:3], y[:, 3:6], y[:, 6:10], y[:, 10:13]
-        theta = safe_norm(w, dim=-1, keepdim=True)
-        # Reference quirk kept verbatim: the 1e-5 is added after the division.
-        w = w / theta + 1e-5
-        v = v / theta + 1e-5
-        return SE3Screw(w=w, v=v, theta=theta), rotation, scaling
+        return _linear(h, w_all, b_all, torch.float32)

@@ -1,18 +1,27 @@
-"""Stage-1 FreeGaussian model, inference forward (twin of `freegaussian_tpu/models/splat_model.py`).
+"""Stage-1 FreeGaussian model: deformable 3DGS forward pass and losses
+(twin of `freegaussian_tpu/models/splat_model.py`).
 
-`forward(cfg, params, alive, camera, deform=..., train=False)` renders one
-camera the way the JAX package serves it: the deform warm-up gate, the
-SE(3) warp, `rasterization` in RGB+ED, the background composite and clamp,
-and the detached-max depth backfill. `SplatModel` bundles the parameters,
-the alive mask and the deform field in one nn.Module whose state_dict keys
-are the reference checkpoint's (`gauss_params.*`, `deform.*`).
+`forward(cfg, params, alive, camera, deform=..., train=...)` renders one
+camera the way the JAX package does: the deform warm-up gate, the SE(3)
+warp, `rasterization`, the background composite and clamp, and the
+detached-max depth backfill. With `train=True` it is differentiable in the
+Gaussian parameters and the deform field's weights, takes the background
+the train step drew (`background`), passes
+the absgrad sink to the compositor, and with `camera0` deforms to the paired
+frame's time (`means_prev`) and, with `render_flow`, composites the
+per-Gaussian screen motion as two channels before any depth channel. With
+`train=False` (serving) it runs under `torch.no_grad`.
 
-Training (`train=True`: random backgrounds, the absgrad sink, the flow
-channels, losses) comes with the port's training slice.
+`loss_fn` is the masked L1 + SSIM (+ optional scale regularization),
+`psnr` the metric, `downscale_factor` the progressive-resolution schedule.
+`SplatModel` bundles the parameters, the alive mask and the deform field in
+one nn.Module whose state_dict keys are the reference checkpoint's
+(`gauss_params.*`, `deform.*`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional
 
@@ -21,17 +30,26 @@ import torch.nn as nn
 
 from ..data.cameras import Camera
 from ..ops.math import num_sh_bases, safe_norm
+from ..ops.projection import project_gaussians
 from ..ops.rasterize import rasterization
 from .fields import DeformField, apply_se3_deform
 from .gaussians import PARAM_NAMES, GaussianParams, colors_from_features
-
+from .ssim import ssim
 
 @dataclasses.dataclass(frozen=True)
 class SplatConfig:
     """Static model configuration; same fields and defaults as the JAX
-    package's SplatConfig. Fields that tune the TPU (chunk, capacities, the
-    deform_impl / remat choices) are kept so configs carry over, and are not
-    read by the port."""
+    package's SplatConfig, except `deform_impl`. Fields that tune the TPU
+    (chunk, capacities, the remat choices) are kept so configs carry over,
+    and are not read by the port.
+
+    `deform_impl` picks the bf16 deform field's implementation: "fused" (the
+    default here) runs it as the kernel pair of `ops/mlp_cuda.py`, the port
+    of the JAX package's `impl="fused"` Pallas pair; any other value runs
+    the split-linear chain, the twin of the JAX package's "headsfused" /
+    flax path (its default, and its only path off the TPU). An f32 field
+    (`deform_bf16=False`) always runs the split-linear chain, as in the JAX
+    package."""
 
     warm_up: int = 3000
     num_downscales: int = 2
@@ -47,7 +65,7 @@ class SplatConfig:
     use_bilateral_grid: bool = False
     deform_bf16: bool = True
     deform_remat: bool = False
-    deform_impl: str = "headsfused"
+    deform_impl: str = "fused"
     deform_remat_policy: str = ""
     near_plane: float = 0.01
     far_plane: float = 1e10
@@ -65,11 +83,21 @@ class SplatConfig:
     tight_radius: bool = True
 
 
-def make_deform_field(cfg: SplatConfig) -> DeformField:
+def make_deform_field(cfg: SplatConfig, depth: int = 8, width: int = 256) -> DeformField:
     return DeformField(
+        depth=depth,
+        width=width,
         is_blender=cfg.is_blender,
         compute_dtype=torch.bfloat16 if cfg.deform_bf16 else torch.float32,
+        fused=cfg.deform_bf16 and cfg.deform_impl == "fused",
     )
+
+
+def downscale_factor(cfg: SplatConfig, step: int, train: bool) -> int:
+    """Progressive training resolution: 2^max(num_downscales - step // resolution_schedule, 0)."""
+    if not train:
+        return 1
+    return int(2 ** max(cfg.num_downscales - int(step) // cfg.resolution_schedule, 0))
 
 
 def sh_degree_to_use(cfg: SplatConfig, step: int) -> int:
@@ -77,7 +105,8 @@ def sh_degree_to_use(cfg: SplatConfig, step: int) -> int:
 
 
 def background_color(cfg: SplatConfig, device: torch.device) -> torch.Tensor:
-    """The inference background ("random" serves the viser default)."""
+    """The serving background ("random" serves the viser default; the train
+    step draws its own)."""
     if cfg.background_color == "random":
         return torch.tensor([0.1490, 0.1647, 0.2157], device=device)
     if cfg.background_color == "white":
@@ -85,7 +114,6 @@ def background_color(cfg: SplatConfig, device: torch.device) -> torch.Tensor:
     return torch.zeros(3, device=device)
 
 
-@torch.no_grad()
 def forward(
     cfg: SplatConfig,
     params: GaussianParams,
@@ -98,31 +126,45 @@ def forward(
     warmed_up: Optional[bool] = None,
     train: bool = False,
     render_mode: Optional[str] = None,
+    background: Optional[torch.Tensor] = None,
+    means2d_sink: Optional[torch.Tensor] = None,
+    camera0: Optional[Camera] = None,
+    render_flow: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """Render one camera (inference). Returns rgb (H, W, 3), accumulation
-    (H, W, 1), background, radii, means2d, depths, num_isects and, for
-    RGB+ED, depth (H, W, 1)."""
-    if train:
-        raise NotImplementedError("forward(train=True) comes with the stage-1 training slice of the port")
+    """Render one camera. Returns rgb (H, W, 3), accumulation (H, W, 1),
+    background, radii, means2d, depths, num_isects, and as they apply depth
+    (H, W, 1), flow (H, W, 2) and means_prev (N, 3)."""
+    with contextlib.nullcontext() if train else torch.no_grad():
+        return _forward(
+            cfg, params, alive, camera, deform, step, sh_degree_now, warmed_up, train,
+            render_mode, background, means2d_sink, camera0, render_flow,
+        )
+
+
+def _forward(
+    cfg, params, alive, camera, deform, step, sh_degree_now, warmed_up, train,
+    render_mode, background, means2d_sink, camera0, render_flow,
+):
     means = params["means"]
     scales_lin = torch.exp(params["scales"])
-    quats = params["quats"]
-    quats_n = quats / safe_norm(quats, dim=-1, keepdim=True)
+    quats_n = params["quats"] / safe_norm(params["quats"], dim=-1, keepdim=True)
     opacities = torch.sigmoid(params["opacities"][..., 0])
     sh_coeffs = colors_from_features(params)
 
     if render_mode is None:
-        render_mode = "RGB+ED"
+        render_mode = "RGB+ED" if (cfg.output_depth_during_training or not train) else "RGB"
     if sh_degree_now is None:
         sh_degree_now = sh_degree_to_use(cfg, step)
     if warmed_up is None:
         warmed_up = step >= cfg.warm_up
+    warmed_up = bool(warmed_up)
 
     # Warm-up gate: before warm-up the canonical Gaussians render as they
-    # are (the JAX gate multiplies the deltas by 0, which is the same).
+    # are and the deform field gets no gradient (the JAX gate multiplies the
+    # deltas by 0, which is the same). The field sees detached means.
     if deform is not None and warmed_up:
         times = camera.time.reshape(1, 1)
-        d_xyz, d_rot, d_scale = deform(means, times)
+        d_xyz, d_rot, d_scale = deform(means.detach(), times)
         means_d = apply_se3_deform(means, d_xyz)
         scales_d = scales_lin + d_scale
         quats_d = quats_n + d_rot
@@ -130,6 +172,29 @@ def forward(
         means = means + (means_d - means)
         scales_lin = scales_lin + (scales_d - scales_lin)
         quats_n = quats_n + (quats_d - quats_n)
+
+    # Flow-derivative path: deform at the paired frame's time, project
+    # through the paired camera, composite the per-Gaussian screen motion.
+    extra_channels = None
+    means_prev = None
+    if camera0 is not None and deform is not None:
+        base = params["means"]
+        if warmed_up:
+            d_xyz0, _, _ = deform(base.detach(), camera0.time.reshape(1, 1))
+            means_prev_d = apply_se3_deform(base, d_xyz0)
+            means_prev = base + (means_prev_d - base)
+        else:
+            means_prev = base
+        if render_flow:
+            proj_t = project_gaussians(
+                means, quats_n, scales_lin, camera.viewmat, camera.K, camera.width, camera.height,
+                near_plane=cfg.near_plane, far_plane=cfg.far_plane, alive=alive,
+            )
+            proj_0 = project_gaussians(
+                means_prev, quats_n, scales_lin, camera0.viewmat, camera0.K, camera0.width, camera0.height,
+                near_plane=cfg.near_plane, far_plane=cfg.far_plane, alive=alive,
+            )
+            extra_channels = proj_t.means2d - proj_0.means2d  # (N, 2) screen motion
 
     render, alpha, info = rasterization(
         means,
@@ -148,11 +213,13 @@ def forward(
         sh_degree=sh_degree_now,
         rasterize_mode=cfg.rasterize_mode,
         alive=alive,
+        means2d_sink=means2d_sink,
+        extra_channels=extra_channels,
         backend=cfg.backend,
         tight_radius=cfg.tight_radius,
     )
 
-    bg = background_color(cfg, means.device)
+    bg = background if background is not None else background_color(cfg, means.device)
     rgb = torch.clamp(render[0, ..., :3] + (1.0 - alpha[0]) * bg, 0.0, 1.0)
     out = {
         "rgb": rgb,
@@ -163,11 +230,57 @@ def forward(
         "depths": info.depths,
         "num_isects": info.num_isects,
     }
+    depth_ch = 3
+    if extra_channels is not None:
+        # channel layout: [rgb (3), flow (2), depth?]
+        out["flow"] = render[0, ..., 3:5]
+        depth_ch = 5
+    if means_prev is not None:
+        out["means_prev"] = means_prev
     if render_mode == "RGB+ED":
-        depth = render[0, ..., 3:4]
-        # unseen pixels get the max depth (ref: freegaussian_model.py:886)
-        out["depth"] = torch.where(alpha[0] > 0, depth, depth.max())
+        depth = render[0, ..., depth_ch : depth_ch + 1]
+        # unseen pixels get the detached max depth (ref: freegaussian_model.py:886)
+        out["depth"] = torch.where(alpha[0] > 0, depth, depth.max().detach())
     return out
+
+
+def loss_fn(
+    cfg: SplatConfig,
+    outputs: Dict[str, torch.Tensor],
+    batch: Dict[str, torch.Tensor],
+    params: GaussianParams,
+    alive: torch.Tensor,
+    *,
+    apply_scale_reg: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Masked L1 + SSIM loss (+ optional PhysGaussian scale regularization).
+    (ref: freegaussian_model.py:944-990)"""
+    gt = batch["image"]
+    if gt.shape[-1] == 4:
+        a = gt[..., 3:4]
+        gt = a * gt[..., :3] + (1 - a) * outputs["background"]
+    pred = outputs["rgb"]
+    if batch.get("mask") is not None:
+        mask = batch["mask"]
+        gt = gt * mask
+        pred = pred * mask
+    l1 = torch.mean(torch.abs(gt - pred))
+    simloss = 1.0 - ssim(gt, pred)
+    main_loss = (1 - cfg.ssim_lambda) * l1 + cfg.ssim_lambda * simloss
+
+    if cfg.use_scale_regularization and apply_scale_reg:
+        scale_exp = torch.exp(params["scales"])
+        ratio = scale_exp.amax(dim=-1) / torch.clamp(scale_exp.amin(dim=-1), min=1e-12)
+        reg = torch.clamp(ratio, min=cfg.max_gauss_ratio) - cfg.max_gauss_ratio
+        scale_reg = 0.1 * torch.sum(reg * alive) / torch.clamp(alive.sum(), min=1)
+    else:
+        scale_reg = torch.zeros((), device=l1.device)
+    return {"main_loss": main_loss, "scale_reg": scale_reg, "l1": l1, "ssim": 1 - simloss}
+
+
+def psnr(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    mse = torch.mean((pred - gt) ** 2)
+    return -10.0 * torch.log10(torch.clamp(mse, min=1e-12))
 
 
 class SplatModel(nn.Module):
@@ -202,6 +315,7 @@ class SplatModel(nn.Module):
     def params(self) -> GaussianParams:
         return dict(self.gauss_params.items())
 
+    @torch.no_grad()
     def forward(
         self, camera: Camera, *, sh_degree_now: Optional[int] = None,
         warmed_up: Optional[bool] = None, render_mode: Optional[str] = None,

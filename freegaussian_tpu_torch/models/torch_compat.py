@@ -9,7 +9,11 @@ reshape of features_rest to its flat layout and a `load_state_dict`.
 `state_from_jax_arrays` builds a `SplatModel` from the JAX package's numpy
 arrays (padded params, alive mask and flax DeformField variables, whose
 `TorchLinear_i` kernels are (in, out)); the tests use it to hand both
-packages identical weights.
+packages identical weights. `adam_state_from_optax` and
+`train_state_from_jax` carry a whole training state across: the optax Adam
+states (count, mu, nu; read by attribute name, without importing optax)
+and the densification statistics, so both packages can start a training
+step from the same state.
 """
 
 from __future__ import annotations
@@ -21,18 +25,15 @@ import numpy as np
 import torch
 
 from .gaussians import PARAM_NAMES
-from .splat_model import SplatConfig, SplatModel
+from .splat_model import SplatConfig, SplatModel, make_deform_field
 
-# creation order of the flax DeformField's TorchLinear_i layers (blender mode)
-_DEFORM_LAYERS = (
-    ["timenet.0", "timenet.2"]
-    + [f"linear.{d}" for d in range(8)]
-    + ["branch_w", "branch_v", "gaussian_rotation", "gaussian_scaling"]
-)
-
-
-def _deform_layer_names(is_blender: bool):
-    return _DEFORM_LAYERS if is_blender else _DEFORM_LAYERS[2:]
+def _deform_layer_names(is_blender: bool, depth: int = 8):
+    """Creation order of the flax DeformField's TorchLinear_i layers."""
+    return (
+        (["timenet.0", "timenet.2"] if is_blender else [])
+        + [f"linear.{d}" for d in range(depth)]
+        + ["branch_w", "branch_v", "gaussian_rotation", "gaussian_scaling"]
+    )
 
 
 def _strip_prefixes(pipeline_state: Dict[str, Any]) -> Dict[str, Any]:
@@ -146,13 +147,95 @@ def state_from_jax_arrays(
     cfg = cfg or SplatConfig()
     alive = torch.as_tensor(np.asarray(alive_np), dtype=torch.bool)
     gauss = {n: torch.as_tensor(np.asarray(params_np[n]), dtype=torch.float32) for n in PARAM_NAMES}
-    layers = deform_vars_np["params"]
-    deform_state = {}
-    for i, layer in enumerate(_deform_layer_names(cfg.is_blender)):
-        p = layers[f"TorchLinear_{i}"]
-        deform_state[f"{layer}.weight"] = torch.as_tensor(np.asarray(p["kernel"]).T.copy())
-        deform_state[f"{layer}.bias"] = torch.as_tensor(np.asarray(p["bias"]).copy())
+    deform_state = deform_state_from_flax(deform_vars_np, cfg.is_blender)
     model = _model_from_arrays(gauss, deform_state, capacity=None, cfg=cfg, step=step, device=device)
     with torch.no_grad():
         model.alive.copy_(alive)
     return model
+
+
+def deform_state_from_flax(tree_np: Dict[str, Any], is_blender: bool = True) -> Dict[str, torch.Tensor]:
+    """A flax DeformField tree ({"params": {"TorchLinear_i": {"kernel" (in, out),
+    "bias"}}}, the variables or an Adam moment of them) -> the port's
+    state_dict names with (out, in) weights."""
+    layers = tree_np["params"]
+    depth = len(layers) - 4 - (2 if is_blender else 0)
+    out = {}
+    for i, layer in enumerate(_deform_layer_names(is_blender, depth)):
+        p = layers[f"TorchLinear_{i}"]
+        out[f"{layer}.weight"] = torch.as_tensor(np.asarray(p["kernel"], np.float32).T.copy())
+        out[f"{layer}.bias"] = torch.as_tensor(np.asarray(p["bias"], np.float32).copy())
+    return out
+
+
+def adam_state_from_optax(group: str, opt_state_np, *, is_blender: bool = True, device="cuda"):
+    """One group's optax Adam state (as numpy) -> the port's `AdamState`.
+    The state is optax's chain tuple; its ScaleByAdamState is found by its
+    `mu`/`nu`/`count` attributes."""
+    from ..device import resolve_device
+    from ..engine.optimizers import AdamState
+
+    dev = resolve_device(device)
+    adam = next(s for s in opt_state_np if {"count", "mu", "nu"} <= set(getattr(s, "_fields", ())))
+    if group == "deform":
+        mu = deform_state_from_flax(adam.mu, is_blender)
+        nu = deform_state_from_flax(adam.nu, is_blender)
+    else:
+        mu = {group: torch.tensor(np.asarray(adam.mu, np.float32))}
+        nu = {group: torch.tensor(np.asarray(adam.nu, np.float32))}
+    return AdamState(
+        count=int(np.asarray(adam.count)),
+        mu={k: v.to(dev) for k, v in mu.items()},
+        nu={k: v.to(dev) for k, v in nu.items()},
+    )
+
+
+def train_state_from_jax(
+    params_np: Dict[str, np.ndarray],
+    alive_np: np.ndarray,
+    deform_vars_np: Optional[Dict[str, Any]],
+    opt_states_np: Dict[str, Any],
+    densify_np: Dict[str, np.ndarray],
+    *,
+    step: int,
+    generator: torch.Generator,
+    cfg: Optional[SplatConfig] = None,
+    device="cuda",
+):
+    """The JAX package's TrainState fields (as numpy) -> the port's
+    `TrainState` on `device`: params (as trainable leaves), alive mask,
+    deform field, every group's Adam state and the densification
+    statistics (`densify_np`: xys_grad_norm, vis_counts, max_2dsize)."""
+    from ..device import resolve_device
+    from ..engine.train_step import TrainState
+    from .densify import DensifyState
+
+    dev = resolve_device(device)
+    cfg = cfg or SplatConfig()
+    deform = None
+    if deform_vars_np is not None:
+        state = deform_state_from_flax(deform_vars_np, cfg.is_blender)
+        depth = sum(1 for k in state if k.startswith("linear.") and k.endswith(".weight"))
+        deform = make_deform_field(cfg, depth=depth, width=state["linear.0.weight"].shape[0])
+        deform.load_state_dict(state, strict=True)
+        deform = deform.to(dev)
+    # copies: the step updates these in place, and a numpy buffer may be
+    # shared with arrays the caller still reads
+    params = {n: torch.tensor(np.asarray(params_np[n], np.float32), device=dev, requires_grad=True) for n in PARAM_NAMES}
+    opt_states = {
+        g: adam_state_from_optax(g, st, is_blender=cfg.is_blender, device=dev)
+        for g, st in opt_states_np.items()
+        if g != "deform" or deform is not None
+    }
+    densify = DensifyState(
+        **{k: torch.tensor(np.asarray(densify_np[k], np.float32), device=dev) for k in DensifyState.__dataclass_fields__}
+    )
+    return TrainState(
+        params=params,
+        alive=torch.tensor(np.asarray(alive_np), dtype=torch.bool, device=dev),
+        deform=deform,
+        opt_states=opt_states,
+        densify=densify,
+        step=int(step),
+        generator=generator,
+    )

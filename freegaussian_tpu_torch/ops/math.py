@@ -1,12 +1,19 @@
-"""Core math ops: quaternions, positional embedding, viewmat convention.
+"""Core math ops: quaternions, positional embedding, viewmat convention,
+bilinear interpolation, SH DC conversion and learning-rate schedules.
 
 Torch twins of `freegaussian_tpu/ops/math.py` (same formulas, same band and
-axis orders) for the functions the serving path needs.
+axis orders) for the functions the serving and training paths need. Every
+op here keeps finite gradients on the all-zero rows of dead padded slots
+(hence `safe_norm`).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+_SH_C0 = 0.28209479177387814
 
 
 def safe_norm(x: torch.Tensor, dim: int = -1, keepdim: bool = False, eps: float = 1e-24) -> torch.Tensor:
@@ -62,3 +69,77 @@ def get_viewmat(c2w: torch.Tensor) -> torch.Tensor:
 
 def num_sh_bases(degree: int) -> int:
     return (degree + 1) ** 2
+
+
+def random_quat(n: int, generator: torch.Generator | None = None, device=None) -> torch.Tensor:
+    """Uniform random unit quaternions (n, 4) wxyz (Shoemake's method)."""
+    u, v, w = torch.rand((3, n), generator=generator, device=device)
+    return torch.stack(
+        [
+            torch.sqrt(1 - u) * torch.sin(2 * math.pi * v),
+            torch.sqrt(1 - u) * torch.cos(2 * math.pi * v),
+            torch.sqrt(u) * torch.sin(2 * math.pi * w),
+            torch.sqrt(u) * torch.cos(2 * math.pi * w),
+        ],
+        dim=-1,
+    )
+
+
+def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
+    """RGB in [0, 1] -> 0th SH coefficient."""
+    return (rgb - 0.5) / _SH_C0
+
+
+def bilinear_interp(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Bilinear interpolation on a batch of images: image (B, H, W, C),
+    x, y (B, N) pixel coords (clamped to the image). Returns (B, N, C).
+    The standard formulation (not the reference's floor/ceil quirk that
+    returns 0 at integer coordinates), as the JAX package keeps it."""
+    B, h, w, _ = image.shape
+    x = torch.clamp(x, 0, w - 1)
+    y = torch.clamp(y, 0, h - 1)
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = x - x0f
+    fy = y - y0f
+    x0 = x0f.long()
+    y0 = y0f.long()
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    b = torch.arange(B, device=image.device)[:, None]
+    Ia = image[b, y0, x0]
+    Ib = image[b, y1, x0]
+    Ic = image[b, y0, x1]
+    Id = image[b, y1, x1]
+    wa = (1 - fx) * (1 - fy)
+    wb = (1 - fx) * fy
+    wc = fx * (1 - fy)
+    wd = fx * fy
+    return wa[..., None] * Ia + wb[..., None] * Ib + wc[..., None] * Ic + wd[..., None] * Id
+
+
+def exponential_decay_schedule(
+    lr_init: float,
+    lr_final: float,
+    max_steps: int,
+    warmup_steps: int = 0,
+    lr_pre_warmup: float = 1e-8,
+):
+    """nerfstudio ExponentialDecayScheduler: cosine-eased warmup from
+    lr_pre_warmup to lr_init over warmup_steps, then log-linear decay to
+    lr_final at max_steps. Returns step -> 0-d f32 tensor, computed in f32
+    as the JAX package's schedule is."""
+
+    def schedule(step) -> torch.Tensor:
+        step = torch.as_tensor(step, dtype=torch.float32)
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+        if warmup_steps > 0:
+            frac = torch.clamp(step / warmup_steps, 0.0, 1.0)
+            warm = lr_pre_warmup + (lr_init - lr_pre_warmup) * torch.sin(0.5 * math.pi * frac)
+        else:
+            warm = f32(lr_init)
+        t = torch.clamp((step - warmup_steps) / max(max_steps - warmup_steps, 1), 0.0, 1.0)
+        decayed = torch.exp(torch.log(f32(lr_init)) * (1 - t) + torch.log(f32(lr_final)) * t)
+        return torch.where(step < warmup_steps, warm, decayed)
+
+    return schedule

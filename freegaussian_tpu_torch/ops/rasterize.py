@@ -1,4 +1,4 @@
-"""Public rasterization API: project -> SH -> tile rasterize (forward only).
+"""Public rasterization API: project -> SH -> tile rasterize, differentiable.
 
 Torch twin of `freegaussian_tpu/ops/rasterize.py:rasterization`, with the
 same signature and `RasterizeInfo`:
@@ -9,9 +9,13 @@ same signature and `RasterizeInfo`:
       rasterize_mode in {"classic", "antialiased"}, extra_channels, ...)
 
 The pixel stage is `ops/rasterize_cuda.py:rasterize_pixels`: the CUDA tile
-compositor on a GPU, its plain PyTorch version on the CPU. The arguments
-that serve the TPU's training and multi-chip paths (`means2d_sink`,
-`absgrad`, `packed`, `gather_axis`, a band `tile_origin_y`) raise
+compositor and its backward on a GPU, their plain PyTorch versions on the
+CPU. Everything is differentiable in the Gaussians' attributes.
+`means2d_sink` (N, 2), zeros, collects the AbsGS absgrad as its gradient:
+on the tile path the per-kernel-tile |d means2d| summed per Gaussian; with
+`backend="reference"` it rides means2d, giving the signed gradient (as the
+JAX package's oracle backend does). The arguments that serve the clustering
+and multi-chip paths (`packed`, `gather_axis`, a band `tile_origin_y`) raise
 NotImplementedError until the slices that port them.
 """
 
@@ -53,9 +57,6 @@ class RasterizeInfo(NamedTuple):
     tile_ids: torch.Tensor | None = None
 
 
-_NEXT_SLICE = "the stage-1 training slice of the port"
-
-
 def rasterization(
     means: torch.Tensor,  # (N, 3)
     quats: torch.Tensor,  # (N, 4) wxyz
@@ -94,17 +95,17 @@ def rasterization(
     alpha); for "ED" the single channel is expected depth. `backend`
     "reference" runs the dense oracle instead of the tile path; `chunk` and
     `isect_capacity` size the TPU's static buffers and are not used here
-    (the port bins exactly `num_isects` slots)."""
+    (the port bins exactly `num_isects` slots). `absgrad` is accepted for
+    the gsplat signature: the absgrad statistic comes through
+    `means2d_sink`."""
     if rasterize_mode not in ("classic", "antialiased"):
         raise ValueError(f"Unknown rasterize_mode: {rasterize_mode}")
     if render_mode not in ("RGB", "RGB+ED", "ED"):
         raise ValueError(f"Unknown render_mode: {render_mode}")
     if backend not in ("auto", "pallas", "reference"):
         raise ValueError(f"Unknown backend: {backend}")
-    if means2d_sink is not None or absgrad:
-        raise NotImplementedError(f"absgrad / means2d_sink come with {_NEXT_SLICE}")
     if packed:
-        raise NotImplementedError(f"packed=True comes with {_NEXT_SLICE} (clustering tools)")
+        raise NotImplementedError("packed=True comes with the clustering slice of the port")
     if gather_axis is not None or tile_origin_y != 0:
         raise NotImplementedError("gather_axis and band rendering come with the multi-GPU slice of the port")
 
@@ -116,6 +117,14 @@ def rasterization(
         near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
         calc_compensations=(rasterize_mode == "antialiased"), alive=alive,
     )
+    means2d = proj.means2d
+    sink_for_pixels = None
+    if means2d_sink is not None:
+        if backend == "reference":
+            # the oracle's plain autodiff gives the signed screen gradient
+            means2d = means2d + means2d_sink
+        else:
+            sink_for_pixels = means2d_sink
 
     if sh_degree is not None:
         rgb = sh_colors_for_camera(colors, means, viewmat, sh_degree)
@@ -146,17 +155,17 @@ def rasterization(
 
     if backend == "reference":
         render, alpha, _ = rasterize_pixels_reference(
-            proj.means2d, proj.conics, channels, opac, proj.depths, radii_pixel,
+            means2d, proj.conics, channels, opac, proj.depths, radii_pixel,
             width, height, tile_size=tile_size,
         )
         tiles_w = -(-width // tile_size)
         tiles_h = -(-height // tile_size)
-        tnx, tmx, tny, tmy = tile_bounds(proj.means2d, radii_pixel, tile_size, tiles_w, tiles_h)
+        tnx, tmx, tny, tmy = tile_bounds(means2d.detach(), radii_pixel, tile_size, tiles_w, tiles_h)
         num_isects = int(torch.sum(torch.where(radii_pixel > 0, (tmx - tnx) * (tmy - tny), 0)))
     else:
         render, alpha, num_isects = rasterize_pixels(
-            proj.means2d, proj.conics, channels, opac, proj.depths, radii_pixel,
-            width, height, tile_size=tile_size,
+            means2d, proj.conics, channels, opac, proj.depths, radii_pixel,
+            width, height, tile_size=tile_size, means2d_sink=sink_for_pixels,
         )
 
     if render_mode in ("RGB+ED", "ED"):
@@ -164,7 +173,7 @@ def rasterization(
         render = torch.cat([render[..., :-1], depth], dim=-1)
 
     info = RasterizeInfo(
-        means2d=proj.means2d,
+        means2d=means2d,
         radii=proj.radii,
         depths=proj.depths,
         conics=proj.conics,

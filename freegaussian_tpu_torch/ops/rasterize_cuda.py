@@ -1,13 +1,24 @@
-"""The tile compositor: CUDA kernel wrapper and its plain PyTorch version.
+"""The tile compositor and its backward: CUDA kernel wrappers and their plain
+PyTorch versions.
 
 `rasterize_tiles` takes the binned intersections of `ops/tiles.py` and
 composites every tile front to back. On a CUDA tensor it launches the kernel
 of `csrc/rasterize_fwd.cu` (the port of the TPU kernel
 `freegaussian_tpu/ops/rasterize_pallas.py:_fwd_kernel`) or raises; on a CPU
 tensor it runs `rasterize_tiles_plain`, which computes the same function
-with padded (tiles, pixels, K) tensors. `rasterize_pixels` is the pixel
-stage end to end (binning, then compositing), the twin of
-`rasterize_pixels_pallas`'s forward.
+with padded (tiles, pixels, K) tensors.
+
+`rasterize_tiles_bwd` is its backward: one gradient row per intersection
+(d means2d, d conic, d opacity, the AbsGS absgrad |sum over the tile of
+d means2d|, d colors). On a CUDA tensor it launches `csrc/rasterize_bwd.cu`
+(the port of `rasterize_pallas.py:_bwd_kernel_rev`) or raises; on a CPU
+tensor it runs `rasterize_tiles_bwd_plain`, autograd through the plain
+forward with respect to the gathered per-intersection rows.
+`reduce_rows_by_gid` sums the rows per Gaussian (the twin of
+`rasterize_pallas.py:_reduce_rows_by_gid`).
+
+`rasterize_pixels` is the pixel stage end to end (binning, then the
+differentiable compositor), the twin of `rasterize_pixels_pallas`.
 """
 
 from __future__ import annotations
@@ -27,29 +38,38 @@ MAX_CHANNELS = 8
 TILE_SIZES = (16, 32)
 # Most (tile, pixel, intersection) elements in one padded batch of the plain version
 PLAIN_BATCH_ELEMENTS = 1 << 24
+# Columns of one backward row ahead of the C color columns: d means2d (2),
+# d conic (3), d opacity (1), absgrad (2)
+GRAD_ROW_HEAD = 8
 
 # Kernel launches by kernel name. Each wrapper adds one where it launches its
 # kernel and nowhere else; `chip_smoke.py` zeroes and reads it.
-LAUNCHES = {"rasterize_fwd": 0}
+LAUNCHES = {"rasterize_fwd": 0, "rasterize_bwd": 0}
 # The CUDA sources (csrc/<name>.cu) this module launches.
-KERNEL_SOURCES = ("rasterize_fwd",)
+KERNEL_SOURCES = ("rasterize_fwd", "rasterize_bwd")
 
-_fn = None
+# ctypes argument layout of each kernel's C entry point
+_ARGTYPES = {
+    "rasterize_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5,
+    "rasterize_bwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2,
+}
+_fns: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(name: str):
+    """(entry point, error-string function) of `csrc/<name>.cu`, built at first use."""
+    if name not in _fns:
         from ..cuda_build import load
 
-        lib = load("rasterize_fwd")
-        fn = lib.rasterize_fwd
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
+        lib = load(name)
+        fn = getattr(lib, name)
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        lib.rasterize_fwd_error_string.argtypes = [ctypes.c_int]
-        lib.rasterize_fwd_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.rasterize_fwd_error_string)
-    return _fn
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _fns[name] = (fn, err)
+    return _fns[name]
 
 
 def _check(name, t, dtype, device, shape=None):
@@ -63,20 +83,8 @@ def _check(name, t, dtype, device, shape=None):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def rasterize_tiles(
-    means2d: torch.Tensor,  # (N, 2) f32
-    conics: torch.Tensor,  # (N, 3) f32
-    colors: torch.Tensor,  # (N, C) f32, C <= 8
-    opacities: torch.Tensor,  # (N,) f32
-    radii: torch.Tensor,  # (N,) f32 bbox radius (used by the contract gate)
-    gauss_ids: torch.Tensor,  # (I,) int32, (tile, depth)-sorted
-    tile_offsets: torch.Tensor,  # (T + 1,) int32
-    width: int,
-    height: int,
-    tile_size: int,
-):
-    """Composite every tile. Returns (color (H, W, C), alpha (H, W),
-    livecnt (H, W) int32, t_final (H, W))."""
+def _check_inputs(means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets, width, height, tile_size):
+    """Validate the compositor's inputs; returns (C, tiles_w, tiles_h)."""
     if tile_size not in TILE_SIZES:
         raise ValueError(f"tile_size must be one of {TILE_SIZES}, got {tile_size}")
     n, C = colors.shape
@@ -95,14 +103,35 @@ def rasterize_tiles(
         ("tile_offsets", tile_offsets, torch.int32, (tiles_w * tiles_h + 1,)),
     ):
         _check(name, t, dt, dev, shape)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the compositor runs on cuda or cpu tensors, got {dev}")
+    return C, tiles_w, tiles_h
+
+
+def rasterize_tiles(
+    means2d: torch.Tensor,  # (N, 2) f32
+    conics: torch.Tensor,  # (N, 3) f32
+    colors: torch.Tensor,  # (N, C) f32, C <= 8
+    opacities: torch.Tensor,  # (N,) f32
+    radii: torch.Tensor,  # (N,) f32 bbox radius (used by the contract gate)
+    gauss_ids: torch.Tensor,  # (I,) int32, (tile, depth)-sorted
+    tile_offsets: torch.Tensor,  # (T + 1,) int32
+    width: int,
+    height: int,
+    tile_size: int,
+):
+    """Composite every tile. Returns (color (H, W, C), alpha (H, W),
+    livecnt (H, W) int32, t_final (H, W))."""
+    C, tiles_w, tiles_h = _check_inputs(
+        means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets, width, height, tile_size
+    )
+    dev = means2d.device
     if dev.type == "cpu":
         return rasterize_tiles_plain(
             means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets, width, height, tile_size
         )
-    if dev.type != "cuda":
-        raise ValueError(f"rasterize_tiles runs on cuda or cpu tensors, got {dev}")
 
-    fn, err = _kernel()
+    fn, err = _kernel("rasterize_fwd")
     color = torch.empty((height, width, C), dtype=torch.float32, device=dev)
     alpha = torch.empty((height, width), dtype=torch.float32, device=dev)
     livecnt = torch.empty((height, width), dtype=torch.int32, device=dev)
@@ -120,31 +149,92 @@ def rasterize_tiles(
     return color, alpha, livecnt, t_final
 
 
+def rasterize_tiles_bwd(
+    means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets,
+    livecnt: torch.Tensor,  # (H, W) int32, from the forward
+    t_final: torch.Tensor,  # (H, W) f32, from the forward
+    g_color: torch.Tensor,  # (H, W, C) f32 cotangent of the color image
+    g_alpha: torch.Tensor,  # (H, W) f32 cotangent of the alpha image
+    width: int,
+    height: int,
+    tile_size: int,
+) -> torch.Tensor:
+    """Per-intersection gradient rows (I, 8 + C): [d mx, d my, d conic a, b,
+    c, d opacity, |d mx|, |d my|, d colors], where |.| is taken after the sum
+    over the intersection's whole tile (one row is one (tile, Gaussian)
+    pair). Every row is written: slots past every pixel's termination get
+    exact zeros."""
+    C, tiles_w, tiles_h = _check_inputs(
+        means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets, width, height, tile_size
+    )
+    dev = means2d.device
+    for name, t, dt, shape in (
+        ("livecnt", livecnt, torch.int32, (height, width)),
+        ("t_final", t_final, torch.float32, (height, width)),
+        ("g_color", g_color, torch.float32, (height, width, C)),
+        ("g_alpha", g_alpha, torch.float32, (height, width)),
+    ):
+        _check(name, t, dt, dev, shape)
+    if dev.type == "cpu":
+        return rasterize_tiles_bwd_plain(
+            means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets, g_color, g_alpha,
+            width, height, tile_size,
+        )
+
+    fn, err = _kernel("rasterize_bwd")
+    rows = torch.empty((gauss_ids.shape[0], GRAD_ROW_HEAD + C), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(
+        means2d.data_ptr(), conics.data_ptr(), opacities.data_ptr(), colors.data_ptr(),
+        radii.data_ptr(), gauss_ids.data_ptr(), tile_offsets.data_ptr(),
+        g_color.data_ptr(), g_alpha.data_ptr(), livecnt.data_ptr(), t_final.data_ptr(),
+        C, width, height, tile_size, tiles_w, tiles_h, int(tile_size != CONTRACT_TILE),
+        rows.data_ptr(), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"rasterize_bwd launch failed: {err(rc).decode()} (cudaError {rc})")
+    LAUNCHES["rasterize_bwd"] += 1
+    return rows
+
+
 def _sequential_cumprod(x: torch.Tensor) -> torch.Tensor:
     """cumprod along the last axis as a left-to-right running product, so every
     partial product rounds exactly as the kernel's `T *= 1 - alpha` does
     (torch.cumprod on CUDA is a parallel scan with another rounding order,
-    which could flip a termination decision sitting on the 1e-4 threshold)."""
-    out = torch.empty_like(x)
+    which could flip a termination decision sitting on the 1e-4 threshold).
+    Stacked rather than written in place, so autograd through it stays
+    linear in the length."""
     run = torch.ones_like(x[..., 0])
+    out = []
     for k in range(x.shape[-1]):
         run = run * x[..., k]
-        out[..., k] = run
-    return out
+        out.append(run)
+    return torch.stack(out, dim=-1)
+
+
+def _slot_rows(means2d, conics, colors, opacities, gauss_ids):
+    """The per-intersection rows [mx, my, ca, cb, cc, op, colors] (I, 6 + C)."""
+    per_gauss = torch.cat([means2d, conics, opacities[:, None], colors], dim=1)
+    return per_gauss[gauss_ids.long()]
 
 
 def rasterize_tiles_plain(
     means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets,
     width: int, height: int, tile_size: int,
 ):
-    """Plain PyTorch version of `rasterize_tiles` (same inputs, same outputs).
+    """Plain PyTorch version of `rasterize_tiles` (same inputs, same outputs)."""
+    rows = _slot_rows(means2d, conics, colors, opacities, gauss_ids)
+    return _composite_plain(rows, radii[gauss_ids.long()], tile_offsets, width, height, tile_size)
 
-    Tiles are taken in order of their intersection count, in batches whose
-    padded (tiles, P, K_max) blocks hold at most `PLAIN_BATCH_ELEMENTS`
+
+def _composite_plain(rows, slot_radii, tile_offsets, width: int, height: int, tile_size: int):
+    """Composite per-intersection rows (I, 6 + C) in their (tile, depth)
+    order. Tiles are taken in order of their intersection count, in batches
+    whose padded (tiles, P, K_max) blocks hold at most `PLAIN_BATCH_ELEMENTS`
     pairs; each batch composites all its pairs at once with the same
-    termination rule."""
-    dev = means2d.device
-    C = colors.shape[1]
+    termination rule. Differentiable in `rows`."""
+    dev = rows.device
+    C = rows.shape[1] - 6
     ts = tile_size
     P = ts * ts
     tiles_w = -(-width // ts)
@@ -156,10 +246,11 @@ def rasterize_tiles_plain(
     gate = ts != CONTRACT_TILE
     g = float(CONTRACT_TILE)
 
-    color_t = torch.zeros((num_tiles, P, C), dtype=torch.float32, device=dev)
-    alpha_t = torch.zeros((num_tiles, P), dtype=torch.float32, device=dev)
+    dt = rows.dtype
+    color_t = torch.zeros((num_tiles, P, C), dtype=dt, device=dev)
+    alpha_t = torch.zeros((num_tiles, P), dtype=dt, device=dev)
     live_t = torch.zeros((num_tiles, P), dtype=torch.int32, device=dev)
-    tfin_t = torch.ones((num_tiles, P), dtype=torch.float32, device=dev)
+    tfin_t = torch.ones((num_tiles, P), dtype=dt, device=dev)
 
     pix = torch.arange(P, device=dev)
     order = torch.argsort(counts, stable=True)
@@ -178,16 +269,16 @@ def rasterize_tiles_plain(
             continue
         k = torch.arange(k_max, device=dev)
         valid = k[None, :] < cnt[:, None]  # (B, K)
-        slot = torch.clamp(starts[tiles][:, None] + k[None, :], max=max(gauss_ids.shape[0] - 1, 0))
-        gid = gauss_ids.long()[slot]  # (B, K)
-        gx = means2d[gid, 0][:, None, :]  # (B, 1, K)
-        gy = means2d[gid, 1][:, None, :]
-        ca = conics[gid, 0][:, None, :]
-        cb = conics[gid, 1][:, None, :]
-        cc = conics[gid, 2][:, None, :]
-        op = opacities[gid][:, None, :]
-        px = ((tiles % tiles_w)[:, None] * ts + pix[None, :] % ts).float()[..., None] + 0.5  # (B, P, 1)
-        py = ((tiles // tiles_w)[:, None] * ts + pix[None, :] // ts).float()[..., None] + 0.5
+        slot = torch.clamp(starts[tiles][:, None] + k[None, :], max=max(rows.shape[0] - 1, 0))
+        data = rows[slot]  # (B, K, 6 + C)
+        gx = data[..., 0][:, None, :]  # (B, 1, K)
+        gy = data[..., 1][:, None, :]
+        ca = data[..., 2][:, None, :]
+        cb = data[..., 3][:, None, :]
+        cc = data[..., 4][:, None, :]
+        op = data[..., 5][:, None, :]
+        px = ((tiles % tiles_w)[:, None] * ts + pix[None, :] % ts).to(dt)[..., None] + 0.5  # (B, P, 1)
+        py = ((tiles // tiles_w)[:, None] * ts + pix[None, :] // ts).to(dt)[..., None] + 0.5
 
         dx = gx - px  # (B, P, K)
         dy = gy - py
@@ -195,13 +286,14 @@ def rasterize_tiles_plain(
         alpha = torch.clamp(op * torch.exp(-sigma), max=MAX_ALPHA)
         vis = valid[:, None, :] & (sigma >= 0) & (alpha >= ALPHA_THRESHOLD)
         if gate:
-            r = radii[gid][:, None, :]
+            r = slot_radii[slot][:, None, :]
+            gxd, gyd = gx.detach(), gy.detach()
             tx = torch.floor((px - 0.5) / g)
             ty = torch.floor((py - 0.5) / g)
             vis = (
                 vis
-                & (tx >= torch.floor((gx - r) / g)) & (tx < torch.ceil((gx + r) / g))
-                & (ty >= torch.floor((gy - r) / g)) & (ty < torch.ceil((gy + r) / g))
+                & (tx >= torch.floor((gxd - r) / g)) & (tx < torch.ceil((gxd + r) / g))
+                & (ty >= torch.floor((gyd - r) / g)) & (ty < torch.ceil((gyd + r) / g))
             )
         a_eff = torch.where(vis, alpha, torch.zeros_like(alpha))
         incl_T = _sequential_cumprod(1.0 - a_eff)
@@ -209,7 +301,7 @@ def rasterize_tiles_plain(
         terminated = torch.cummax((incl_T <= TRANSMITTANCE_EPS).to(torch.int32), dim=-1).values > 0
         w = torch.where(vis & ~terminated, a_eff * excl_T, torch.zeros_like(a_eff))
 
-        col = colors[gid]  # (B, K, C)
+        col = data[..., 6:]  # (B, K, C)
         color_t[tiles] = torch.einsum("bpk,bkc->bpc", w, col)
         alpha_t[tiles] = w.sum(-1)
         walked = (valid[:, None, :] & ~terminated).sum(-1).to(torch.int32)  # (B, P)
@@ -226,6 +318,84 @@ def rasterize_tiles_plain(
     return to_image(color_t), to_image(alpha_t), to_image(live_t), to_image(tfin_t)
 
 
+def rasterize_tiles_bwd_plain(
+    means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets, g_color, g_alpha,
+    width: int, height: int, tile_size: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of `rasterize_tiles_bwd`: autograd through the
+    plain forward with respect to the gathered per-intersection rows, which
+    gives each row's gradient independently of the kernel's algebra. The
+    absgrad of a row is the abs of its means2d gradient (one row is one
+    (tile, Gaussian) pair, so that gradient is already the tile's sum)."""
+    ids = gauss_ids.long()
+    rows = _slot_rows(means2d, conics, colors, opacities, gauss_ids).detach().requires_grad_(True)
+    C = colors.shape[1]
+    d_rows = None
+    if rows.shape[0] > 0:
+        with torch.enable_grad():
+            color, alpha, _, _ = _composite_plain(rows, radii[ids], tile_offsets, width, height, tile_size)
+            if color.requires_grad:
+                (d_rows,) = torch.autograd.grad((color, alpha), rows, (g_color, g_alpha), allow_unused=True)
+    if d_rows is None:
+        d_rows = torch.zeros_like(rows)
+    d_rows = d_rows.detach()
+    return torch.cat([d_rows[:, :6], d_rows[:, :2].abs(), d_rows[:, 6 : 6 + C]], dim=1)
+
+
+def reduce_rows_by_gid(
+    rows: torch.Tensor,  # (I, D) per-intersection rows
+    gauss_ids: torch.Tensor,  # (I,) int32
+    offsets: torch.Tensor,  # (N,) exclusive cumsum of counts
+    counts: torch.Tensor,  # (N,) slots per Gaussian
+) -> torch.Tensor:
+    """Deterministic per-Gaussian sum of per-intersection rows (the twin of
+    `rasterize_pallas.py:_reduce_rows_by_gid`): a stable sort by Gaussian id,
+    an f32 prefix sum, and differences at the group boundaries. Groups are
+    contiguous after the sort and sized `counts`. The prefix sum runs along
+    the last axis of the transposed (D, I) rows: on CUDA a scan over the
+    outer axis of (I, D) is some 300x slower. Returns (N, D) f32."""
+    order = torch.argsort(gauss_ids, stable=True)
+    cs = torch.cumsum(rows[order].float().t().contiguous(), dim=1)  # (D, I)
+    cs = torch.cat([cs.new_zeros((rows.shape[1], 1)), cs], dim=1)
+    lo = offsets.long()
+    hi = lo + counts.long()
+    return (cs[:, hi] - cs[:, lo]).t()
+
+
+class _PixelStage(torch.autograd.Function):
+    """The compositor with its backward: forward `rasterize_tiles`, backward
+    `rasterize_tiles_bwd` then `reduce_rows_by_gid`. Differentiable inputs:
+    means2d, conics, colors (all C channels), opacities, and the absgrad
+    sink, whose gradient is the per-Gaussian sum over kernel tiles of
+    |sum over the tile of d means2d|. Radii and the binning are cuts."""
+
+    @staticmethod
+    def forward(ctx, means2d, conics, colors, opacities, sink, radii, isect, width, height, tile_size):
+        color, alpha, livecnt, t_final = rasterize_tiles(
+            means2d, conics, colors, opacities, radii, isect.gauss_ids, isect.tile_offsets,
+            width, height, tile_size,
+        )
+        ctx.save_for_backward(means2d, conics, colors, opacities, radii, livecnt, t_final)
+        ctx.isect = isect
+        ctx.size = (width, height, tile_size)
+        ctx.has_sink = sink is not None
+        return color, alpha
+
+    @staticmethod
+    def backward(ctx, g_color, g_alpha):
+        means2d, conics, colors, opacities, radii, livecnt, t_final = ctx.saved_tensors
+        isect = ctx.isect
+        width, height, tile_size = ctx.size
+        rows = rasterize_tiles_bwd(
+            means2d, conics, colors, opacities, radii, isect.gauss_ids, isect.tile_offsets,
+            livecnt, t_final, g_color.float().contiguous(), g_alpha.float().contiguous(),
+            width, height, tile_size,
+        )
+        g = reduce_rows_by_gid(rows, isect.gauss_ids, isect.offsets, isect.counts)
+        d_sink = g[:, 6:8] if ctx.has_sink else None
+        return g[:, 0:2], g[:, 2:5], g[:, GRAD_ROW_HEAD:], g[:, 5], d_sink, None, None, None, None, None
+
+
 def rasterize_pixels(
     means2d: torch.Tensor,
     conics: torch.Tensor,
@@ -237,18 +407,21 @@ def rasterize_pixels(
     height: int,
     *,
     tile_size: int = 16,
+    means2d_sink: torch.Tensor | None = None,
 ):
     """Tile-rasterize pre-projected Gaussians. Returns
-    (render (H, W, C), alpha (H, W, 1), num_isects)."""
-    isect = build_intersections(means2d, radii, depths, width, height, tile_size)
-    color, alpha, _, _ = rasterize_tiles(
+    (render (H, W, C), alpha (H, W, 1), num_isects). Differentiable in
+    means2d, conics, colors and opacities; `means2d_sink` (N, 2), zeros,
+    receives the AbsGS absgrad as its gradient (per kernel tile)."""
+    isect = build_intersections(means2d.detach(), radii, depths.detach(), width, height, tile_size)
+    color, alpha = _PixelStage.apply(
         means2d.float().contiguous(),
         conics.float().contiguous(),
         colors.float().contiguous(),
         opacities.float().contiguous(),
-        radii.float().contiguous(),
-        isect.gauss_ids,
-        isect.tile_offsets,
+        means2d_sink,
+        radii.detach().float().contiguous(),
+        isect,
         width,
         height,
         tile_size,

@@ -36,7 +36,8 @@ def _flax_deform(bf16, is_blender=True, seed=1):
 
 
 def _port_model(params, alive, dvars, bf16, is_blender=True):
-    cfg = TConfig(deform_bf16=bf16, is_blender=is_blender)
+    # the split-linear chain: the twin of the flax path the JAX side runs here
+    cfg = TConfig(deform_bf16=bf16, is_blender=is_blender, deform_impl="headsfused")
     return t_compat.state_from_jax_arrays(
         params, alive, jax.tree.map(np.asarray, dvars), cfg=cfg, device="cpu"
     )

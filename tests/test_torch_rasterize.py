@@ -256,8 +256,6 @@ def test_rasterization_tpu_only_arguments_raise():
     tc = torch_camera(arrs)
     args = (*map(torch.tensor, (means, quats, scales, opac, sh)), tc.viewmat, tc.K, W, H)
     for kw in (
-        dict(means2d_sink=torch.zeros(len(means), 2)),
-        dict(absgrad=True),
         dict(packed=True),
         dict(gather_axis="tile"),
         dict(tile_origin_y=16),

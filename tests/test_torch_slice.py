@@ -87,7 +87,8 @@ def _compare(t_out, j_out):
 def test_forward_matches_jax(source, bf16, tile_size, tmp_path):
     params, alive, jcfg, field, dvars = _jax_side(bf16, tile_size)
     arrs = camera_arrays(time=0.6)
-    tcfg = TConfig(deform_bf16=bf16, tile_size=tile_size)
+    # the split-linear field: the twin of the flax path JAX runs off the TPU
+    tcfg = TConfig(deform_bf16=bf16, tile_size=tile_size, deform_impl="headsfused")
     if source == "bridge":
         model = t_compat.state_from_jax_arrays(params, alive, jax.tree.map(np.asarray, dvars), cfg=tcfg, device="cpu")
     else:

@@ -1,5 +1,6 @@
 """Seeded numpy scenes shared by the `test_torch_*` files, which hold the
-PyTorch port against the JAX package on identical inputs."""
+PyTorch port against the JAX package on identical inputs, and a matching
+pair of JAX / port training states with the JAX step's random draws."""
 
 import numpy as np
 
@@ -105,3 +106,56 @@ def torch_camera(arrs, device="cpu"):
         c2w=t(arrs["c2w"]), fx=t(arrs["fx"]), fy=t(arrs["fy"]), cx=t(arrs["cx"]), cy=t(arrs["cy"]),
         time=t(arrs["time"]), width=arrs["width"], height=arrs["height"],
     )
+
+
+def jax_step_draws(key, capacity):
+    """The random numbers the JAX train step draws from `key` (its
+    background and its two split-sample normals), as the port's `draws`."""
+    import jax
+    import torch
+
+    _, k_bg, k_refine = jax.random.split(key, 3)
+    k1, k2 = jax.random.split(k_refine)
+    t = lambda a: torch.tensor(np.asarray(a))
+    return {
+        "background": t(jax.random.uniform(k_bg, (3,))),
+        "split_eps": tuple(t(jax.random.normal(k, (capacity, 3))) for k in (k1, k2)),
+    }
+
+
+def train_state_pair(n=150, capacity=180, seed=0, bf16=False, depth=2, width=32, scene=None):
+    """A matching (JAX TrainState, port TrainState) pair built from one seed:
+    the padded parameters of `gaussian_scene_3d` (or `scene` = (params,
+    alive)), a depth x width deform field initialized by flax, the per-group
+    optax Adam states, fresh densification statistics. The port's side goes
+    through the weight bridge (`train_state_from_jax`) on the CPU.
+    Returns (jax_state, port_state, jax_field, jax_optimizers)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from freegaussian_tpu.engine.optimizers import OptimizersConfig, init_opt_states, make_optimizers
+    from freegaussian_tpu.engine.train_step import GAUSSIAN_GROUPS, TrainState
+    from freegaussian_tpu.models.densify import DensifyState
+    from freegaussian_tpu.models.fields import DeformField
+    from freegaussian_tpu_torch.models.splat_model import SplatConfig as TConfig
+    from freegaussian_tpu_torch.models.torch_compat import train_state_from_jax
+
+    params, alive = scene if scene is not None else gaussian_scene_3d(n=n, seed=seed, capacity=capacity)
+    field = DeformField(depth=depth, width=width, compute_dtype=jnp.bfloat16 if bf16 else jnp.float32)
+    dvars = field.init(jax.random.PRNGKey(seed + 1), jnp.zeros((1, 3)), jnp.zeros((1, 1)))
+    optimizers = make_optimizers(OptimizersConfig(max_steps=1000))
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    groups = {k: jparams[k] for k in GAUSSIAN_GROUPS}
+    groups["deform"] = dvars
+    jstate = TrainState(
+        params=jparams, alive=jnp.asarray(alive), deform_vars=dvars, control_vars=None,
+        opt_states=init_opt_states(optimizers, groups), densify=DensifyState.create(len(alive)),
+        step=jnp.asarray(0), key=jax.random.PRNGKey(seed + 2),
+    )
+    tstate = train_state_from_jax(
+        params, alive, jax.tree.map(np.asarray, dvars), jax.tree.map(np.asarray, jstate.opt_states),
+        {k: np.asarray(getattr(jstate.densify, k)) for k in ("xys_grad_norm", "vis_counts", "max_2dsize")},
+        step=0, generator=torch.Generator().manual_seed(seed), cfg=TConfig(deform_bf16=bf16, deform_impl="headsfused"), device="cpu",
+    )
+    return jstate, tstate, field, optimizers
