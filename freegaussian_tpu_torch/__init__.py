@@ -7,7 +7,10 @@ checkpoint -> `forward(train=False)` -> the HTTP viewer, with the tile
 compositor as a hand-written CUDA kernel (`csrc/rasterize_fwd.cu`). The
 second is the stage-1 training step (`engine/train_step.py`), whose
 backward runs the compositor's backward as a hand-written CUDA kernel
-(`csrc/rasterize_bwd.cu`).
+(`csrc/rasterize_bwd.cu`). The third is the stage-2 control path: the
+slider viewer over a `ControlModel` (`models/control_model.py`) and the
+control training step (`engine/control_train_step.py`), whose deform and
+control trunks run on the field-trunk kernels of `csrc/deform_field.cu`.
 
 Entry points default to ``device="cuda"`` and raise when no GPU is present;
 pass ``device="cpu"`` to run the plain PyTorch versions of the kernels.

@@ -1,46 +1,67 @@
-// The whole deform field in one kernel pair: the in-kernel NeRF embedding,
-// the 8x256 bf16 ReLU trunk with its skip after layer 4, and the four output
-// heads packed as 13 f32 lanes [w (3) | v (3) | rotation (4) | scaling (3)].
+// The field MLPs of the deform and control fields in one kernel pair: the
+// in-kernel NeRF embedding of one or two 3-vector sources plus a broadcast
+// time row, the 8x256 bf16 ReLU trunk with its skip after layer 4, and one of
+// two outputs (the template flag HEADS):
+//   HEADS   the four deform heads packed as 13 f32 lanes
+//           [w (3) | v (3) | rotation (4) | scaling (3)]
+//   !HEADS  the trunk's last activation h (N, 256) bf16; the caller runs its
+//           heads in f32. In training h is the last saved activation, so
+//           it is written once, there.
 //
 // Replaces the TPU kernels freegaussian_tpu/ops/mlp_pallas.py:
-//   _fused_field_heads_fwd (body _field_fwd_kernel_heads) -> deform_fwd
-//   _fused_field_heads_bwd (body _field_bwd_kernel_heads) -> deform_bwd
-// and computes what they compute, per point x (N, 3) with one shared time row:
-//   emb  = [x, sin(2^0 x), cos(2^0 x), ..., cos(2^(L-1) x) | t_row | 0] (96 lanes)
+//   _fused_field_heads_fwd (body _field_fwd_kernel_heads) -> field_fwd, HEADS
+//   _fused_field_heads_bwd (body _field_bwd_kernel_heads) -> field_bwd, HEADS
+//   _fused_field_fwd       (body _field_fwd_kernel)       -> field_fwd, !HEADS
+//   _fused_field_bwd       (body _field_bwd_kernel)       -> field_bwd, !HEADS
+// and computes what they compute, per row of S sources x (N, 3 S) with one
+// shared time row:
+//   emb  = [x_0, sin(2^0 x_0), cos(2^0 x_0), ..., cos(2^(L-1) x_0) | x_1 ... |
+//           t_row | 0]                                   (128 lanes)
 //   h_0  = relu(emb @ W0 + b0);  h_i = relu(h_{i-1} @ W_i + b_i), except
 //   h_5  = relu([emb | h_4] @ W5 + b5)
-//   y    = h_7 @ HW + HB                         (f32 heads)
-// Matrix products take bf16 operands with f32 accumulation (tensor cores,
-// WMMA 16x16x16), the bias and ReLU run in f32 and each activation is stored
-// as bf16: the numerics of mlp_pallas.py (_mm, _forward_acts). The heads run
-// in f32 on the CUDA cores, as the Pallas kernel runs them at HIGHEST.
+//   y    = h_7 @ HW + HB                      (HEADS: f32 heads)
+// Source s takes lanes [s X, (s + 1) X) with X = 3 (1 + 2 L), the time row
+// the S X lanes after them: the deform field is S = 1 with the timenet's 30
+// lanes, the control field S = 2 (position, control value) without a time
+// row (126 lanes). Matrix products take bf16 operands with f32 accumulation
+// (tensor cores, WMMA 16x16x16), the bias and ReLU run in f32 and each
+// activation is stored as bf16: the numerics of mlp_pallas.py (_mm,
+// _forward_acts). The heads run in f32 on the CUDA cores, as the Pallas
+// kernel runs them at HIGHEST.
 //
-// The backward takes dy (N, 13) and gives dx, the row sum of d emb (the shared
-// time row's gradient is its t lanes), every weight and bias gradient in f32.
-// Per layer, top down: g = (g_above @ W^T) * (h > 0); db = sum of g (f32);
-// dW = h_below^T bf16(g); the products take bf16(g), as _mm_nt / _mm_tn do.
+// The backward takes dy (N, 13) f32 (HEADS) or dh (N, 256) f32 (!HEADS) and
+// gives dx (N, 3 S), the row sum of d emb (the shared time row's gradient is
+// its t lanes), every weight and bias gradient in f32. Per layer, top down:
+// g = (g_above @ W^T) * (h > 0); db = sum of g (f32); dW = h_below^T bf16(g);
+// the products take bf16(g), as _mm_nt / _mm_tn do.
 //
 // Design. The TPU kernel walks row blocks in order and keeps the weight
 // gradients resident across its sequential grid; here blocks run in parallel,
 // so the work is split in three launches:
-//   deform_fwd_kernel   one block of 64 rows runs the embedding, the trunk
+//   field_fwd_kernel    one block of 64 rows runs the embedding, the trunk
 //                       (activations ping-pong in shared memory, weights read
-//                       through L2) and the heads. In training it also writes
-//                       the bf16 embedding and the eight activations (4.3 KB a
-//                       row), which the backward reads instead of recomputing.
-//   deform_dgrad_kernel one block of 64 rows walks the layers top down and
+//                       through L2) and the heads or the h store. In training
+//                       it also writes the bf16 embedding and the eight
+//                       activations (4.35 KB a row), which the backward reads
+//                       instead of recomputing.
+//   field_dgrad_kernel  one block of 64 rows walks the layers top down and
 //                       writes each layer's masked gradient bf16(g) (the
 //                       operand of its weight gradient), the small f32 sums
 //                       (biases, heads, time row) by atomics, and dx.
-//   deform_wgrad_kernel dW = h_below^T bf16(g) for all eight layers: one block
+//   field_wgrad_kernel  dW = h_below^T bf16(g) for all eight layers: one block
 //                       per (layer, 128 x 32 tile of dW, share of the rows),
 //                       each writing its partial sum; the wrapper adds the
 //                       shares in a fixed order.
-// Bound on an H100: ~2.0e11 bf16 tensor operations per step's field pair at
-// N = 1e5 against ~0.9 GB of activation traffic; chip_smoke.py prints both
-// bounds from its own run. This first version reads the weights' WMMA tiles
-// straight from L2 and keeps one block of 64 rows per SM pass: wgmma, TMA
-// staging and a persistent schedule are later work.
+// Bound on an H100: ~1.0e11 bf16 tensor operations per forward at N = 1e5
+// (2.1e11 backward) against ~0.46 GB of saved-activation traffic in
+// training; chip_smoke.py prints both bounds from its own run. This first
+// version reads the weights' WMMA tiles straight from L2 and keeps one block
+// of 64 rows per SM pass: wgmma, TMA staging and a persistent schedule are
+// later work.
+//
+// sinf / cosf, never __sinf: with -fmad=false the scaled argument (a power of
+// two times x, exact) reaches the thousands at 2^9, where the fast intrinsic
+// loses its accuracy.
 //
 // Plain C interface (loaded with ctypes); launches on the caller's stream,
 // allocates nothing, and returns cudaGetLastError().
@@ -58,11 +79,13 @@ typedef __nv_bfloat16 bf16;
 constexpr int H = 256;        // trunk width
 constexpr int DEPTH = 8;      // trunk layers
 constexpr int SKIP_IN = 5;    // the layer that takes [emb | h_4]
-constexpr int EMB = 96;       // embedding lanes (x lanes + time lanes, zero padded)
+constexpr int EMB = 128;      // embedding lanes (source lanes + time lanes, zero padded)
+constexpr int MAX_SRC = 2;    // 3-vector sources per row
 constexpr int NOUT = 13;      // packed head outputs
 constexpr int ROWS = 64;      // rows of one block
 constexpr int THREADS = 256;  // 8 warps
 constexpr int WARPS = THREADS / 32;
+constexpr int XBYTES = ROWS * 3 * MAX_SRC * 4 + 512;  // the block's source rows, rounded to 2 KB
 constexpr int LDE = EMB + 8;  // shared-memory row strides (bf16 / f32 elements)
 constexpr int LDA = H + 8;
 constexpr int LDS = EMB + 8;
@@ -136,12 +159,13 @@ __device__ __forceinline__ void epilogue(Acc (&acc)[4][NT], float* stage, int n0
         }
 }
 
-// 64 rows of `cols` bf16 between global memory (row stride ldg) and shared
-// memory (row stride lds), 16 bytes a thread.
+// `rows` rows of `cols` bf16 between global memory (row stride ldg) and
+// shared memory (row stride lds), 16 bytes a thread.
 template <bool TO_SHARED>
-__device__ __forceinline__ void copy_rows(bf16* smem, int lds, bf16* gmem, int ldg, int cols, int tid) {
+__device__ __forceinline__ void copy_rows(bf16* smem, int lds, bf16* gmem, int ldg, int cols, int tid,
+                                          int rows = ROWS) {
     const int per_row = cols / 8;
-    for (int i = tid; i < ROWS * per_row; i += THREADS) {
+    for (int i = tid; i < rows * per_row; i += THREADS) {
         const int r = i / per_row, c = (i - r * per_row) * 8;
         uint4* s = (uint4*)(smem + r * lds + c);
         uint4* g = (uint4*)(gmem + (size_t)r * ldg + c);
@@ -150,36 +174,45 @@ __device__ __forceinline__ void copy_rows(bf16* smem, int lds, bf16* gmem, int l
     }
 }
 
-__device__ __forceinline__ float embed_lane(const float* xr, int lane, int xl, const float* trow, int tl) {
-    if (lane < xl) {
-        const int c = lane % 3, b = lane / 3;
-        const float v = xr[c];
+// The block's source rows (ROWS x 3 S f32) into shared memory, zeros past n.
+__device__ __forceinline__ void load_sources(float* s_x, const float* x, int row0, int n, int src, int tid) {
+    const int xw = 3 * src;
+    for (int i = tid; i < ROWS * xw; i += THREADS) s_x[i] = row0 + i / xw < n ? x[(size_t)row0 * xw + i] : 0.0f;
+}
+
+__device__ __forceinline__ float embed_lane(const float* xr, int lane, int src, int xl, const float* trow, int tl) {
+    if (lane < src * xl) {
+        const int s = lane / xl, l = lane - s * xl;
+        const int c = l % 3, b = l / 3;
+        const float v = xr[3 * s + c];
         if (b == 0) return v;
-        const float s = v * (float)(1 << ((b - 1) >> 1));  // exact: a power of two
-        return (b & 1) ? sinf(s) : cosf(s);
+        const float a = v * (float)(1 << ((b - 1) >> 1));  // exact: a power of two
+        return (b & 1) ? sinf(a) : cosf(a);
     }
-    if (lane < xl + tl) return trow[lane - xl];
+    if (lane < src * xl + tl) return trow[lane - src * xl];
     return 0.0f;
 }
 
 __device__ __forceinline__ float relu(float v) { return v < 0.0f ? 0.0f : v; }  // keeps NaN, as torch.relu
 
-constexpr size_t FWD_SMEM = 1024 + sizeof(bf16) * (ROWS * LDE + 2 * ROWS * LDA) + sizeof(float) * (WARPS * 256 + NOUT * H);
+constexpr size_t FWD_SMEM =
+    XBYTES + sizeof(bf16) * (ROWS * LDE + 2 * ROWS * LDA) + sizeof(float) * (WARPS * 256 + NOUT * H);
 
+template <bool HEADS>
 __global__ void __launch_bounds__(THREADS)
-deform_fwd_kernel(const float* __restrict__ x,      // (N, 3)
-                  int n, const float* __restrict__ trow, int xl, int tl,
-                  const bf16* __restrict__ wpack,   // packed trunk weights, layer i (256, K_i)
-                  const float* __restrict__ bias,   // (8, 256)
-                  const float* __restrict__ hw,     // (13, 256)
-                  const float* __restrict__ hb,     // (13,)
-                  float* __restrict__ y,            // (N, 13)
-                  bf16* __restrict__ emb_out,       // (N_pad, 96) or null
-                  bf16* __restrict__ acts_out,      // (8, N_pad, 256) or null
-                  int n_pad) {
+field_fwd_kernel(const float* __restrict__ x,      // (N, 3 S)
+                 int n, int src, int xl, const float* __restrict__ trow, int tl,
+                 const bf16* __restrict__ wpack,   // packed trunk weights, layer i (256, K_i)
+                 const float* __restrict__ bias,   // (8, 256)
+                 const float* __restrict__ hw,     // (13, 256), HEADS only
+                 const float* __restrict__ hb,     // (13,), HEADS only
+                 void* __restrict__ out,           // y (N, 13) f32, or h (N, 256) bf16
+                 bf16* __restrict__ emb_out,       // (N_pad, 128) or null
+                 bf16* __restrict__ acts_out,      // (8, N_pad, 256) or null
+                 int n_pad) {
     extern __shared__ __align__(128) unsigned char smem[];
     float* s_x = (float*)smem;
-    bf16* s_emb = (bf16*)(smem + 1024);
+    bf16* s_emb = (bf16*)(smem + XBYTES);
     bf16* s_act0 = s_emb + ROWS * LDE;
     bf16* s_act1 = s_act0 + ROWS * LDA;
     float* s_stage = (float*)(s_act1 + ROWS * LDA);
@@ -188,12 +221,13 @@ deform_fwd_kernel(const float* __restrict__ x,      // (N, 3)
     const int row0 = blockIdx.x * ROWS;
     float* stage = s_stage + warp * 256;
 
-    for (int i = tid; i < ROWS * 3; i += THREADS) s_x[i] = row0 + i / 3 < n ? x[(size_t)row0 * 3 + i] : 0.0f;
-    for (int i = tid; i < NOUT * H; i += THREADS) s_hw[i] = hw[i];
+    load_sources(s_x, x, row0, n, src, tid);
+    if (HEADS)
+        for (int i = tid; i < NOUT * H; i += THREADS) s_hw[i] = hw[i];
     __syncthreads();
     for (int i = tid; i < ROWS * EMB; i += THREADS) {
         const int r = i / EMB, l = i - r * EMB;
-        s_emb[r * LDE + l] = __float2bfloat16_rn(embed_lane(s_x + 3 * r, l, xl, trow, tl));
+        s_emb[r * LDE + l] = __float2bfloat16_rn(embed_lane(s_x + 3 * src * r, l, src, xl, trow, tl));
     }
     __syncthreads();
     if (emb_out) copy_rows<false>(s_emb, LDE, emb_out + (size_t)row0 * EMB, EMB, EMB, tid);
@@ -225,35 +259,42 @@ deform_fwd_kernel(const float* __restrict__ x,      // (N, 3)
         nxt = tmp;
     }
 
-    for (int o = tid; o < ROWS * NOUT; o += THREADS) {
-        const int r = o / NOUT, j = o - r * NOUT;
-        if (row0 + r >= n) continue;
-        const bf16* hr = cur + r * LDA;
-        const float* wj = s_hw + j * H;
-        float s = 0.0f;
-        for (int k = 0; k < H; ++k) s += __bfloat162float(hr[k]) * wj[k];
-        y[(size_t)(row0 + r) * NOUT + j] = s + hb[j];
+    if (HEADS) {
+        float* y = (float*)out;
+        for (int o = tid; o < ROWS * NOUT; o += THREADS) {
+            const int r = o / NOUT, j = o - r * NOUT;
+            if (row0 + r >= n) continue;
+            const bf16* hr = cur + r * LDA;
+            const float* wj = s_hw + j * H;
+            float s = 0.0f;
+            for (int k = 0; k < H; ++k) s += __bfloat162float(hr[k]) * wj[k];
+            y[(size_t)(row0 + r) * NOUT + j] = s + hb[j];
+        }
+    } else if (!acts_out) {  // in training h is acts_out[7], stored above
+        const int rows = min(ROWS, n - row0);  // the last block's rows past n are padding
+        if (rows > 0) copy_rows<false>(cur, LDA, (bf16*)out + (size_t)row0 * H, H, H, tid, rows);
     }
 }
 
 constexpr size_t DGRAD_SMEM =
-    1024 + sizeof(float) * ROWS * 16 + sizeof(bf16) * 3 * ROWS * LDA + sizeof(float) * (ROWS * LDS + WARPS * 256 + H);
+    XBYTES + sizeof(float) * ROWS * 16 + sizeof(bf16) * 3 * ROWS * LDA + sizeof(float) * (ROWS * LDS + WARPS * 256 + H);
 
+template <bool HEADS>
 __global__ void __launch_bounds__(THREADS)
-deform_dgrad_kernel(const float* __restrict__ x, int n, int xl,
-                    const float* __restrict__ dy,     // (N, 13)
-                    const bf16* __restrict__ wpack, const float* __restrict__ hw,
-                    const bf16* __restrict__ acts,    // (8, N_pad, 256)
-                    int n_pad,
-                    bf16* __restrict__ G,             // (8, N_pad, 256) out: bf16(g) per layer
-                    float* __restrict__ dbias,        // (8, 256), accumulated
-                    float* __restrict__ dhw,          // (13, 256), accumulated
-                    float* __restrict__ dhb,          // (13,), accumulated
-                    float* __restrict__ demb_sum,     // (96,), accumulated
-                    float* __restrict__ dx) {         // (N, 3)
+field_dgrad_kernel(const float* __restrict__ x, int n, int src, int xl,
+                   const float* __restrict__ dout,   // dy (N, 13) (HEADS) or dh (N, 256)
+                   const bf16* __restrict__ wpack, const float* __restrict__ hw,
+                   const bf16* __restrict__ acts,    // (8, N_pad, 256)
+                   int n_pad,
+                   bf16* __restrict__ G,             // (8, N_pad, 256) out: bf16(g) per layer
+                   float* __restrict__ dbias,        // (8, 256), accumulated
+                   float* __restrict__ dhw,          // (13, 256), accumulated (HEADS)
+                   float* __restrict__ dhb,          // (13,), accumulated (HEADS)
+                   float* __restrict__ demb_sum,     // (128,), accumulated
+                   float* __restrict__ dx) {         // (N, 3 S)
     extern __shared__ __align__(128) unsigned char smem[];
     float* s_x = (float*)smem;
-    float* s_dy = (float*)(smem + 1024);
+    float* s_dy = (float*)(smem + XBYTES);
     bf16* s_g0 = (bf16*)(s_dy + ROWS * 16);
     bf16* s_g1 = s_g0 + ROWS * LDA;
     bf16* s_a = s_g1 + ROWS * LDA;
@@ -264,46 +305,59 @@ deform_dgrad_kernel(const float* __restrict__ x, int n, int xl,
     const int row0 = blockIdx.x * ROWS;
     float* stage = s_stage + warp * 256;
 
-    for (int i = tid; i < ROWS * 3; i += THREADS) s_x[i] = row0 + i / 3 < n ? x[(size_t)row0 * 3 + i] : 0.0f;
-    for (int i = tid; i < ROWS * 16; i += THREADS) {
-        const int r = i >> 4, j = i & 15;
-        s_dy[i] = (j < NOUT && row0 + r < n) ? dy[(size_t)(row0 + r) * NOUT + j] : 0.0f;
+    load_sources(s_x, x, row0, n, src, tid);
+    if (HEADS) {
+        for (int i = tid; i < ROWS * 16; i += THREADS) {
+            const int r = i >> 4, j = i & 15;
+            s_dy[i] = (j < NOUT && row0 + r < n) ? dout[(size_t)(row0 + r) * NOUT + j] : 0.0f;
+        }
     }
     copy_rows<true>(s_a, LDA, (bf16*)acts + ((size_t)(DEPTH - 1) * n_pad + row0) * H, H, H, tid);
     __syncthreads();
 
-    // the heads: d HB, d HW = h_7^T dy, and g_7 = (dy @ HW) * (h_7 > 0), one column per thread
-    if (tid < NOUT) {
-        float s = 0.0f;
-        for (int r = 0; r < ROWS; ++r) s += s_dy[r * 16 + tid];
-        atomicAdd(dhb + tid, s);
-    }
+    // the top layer's g_7, one column per thread: HEADS, d HB, d HW = h_7^T
+    // dy and g_7 = (dy @ HW) * (h_7 > 0); else g_7 = dh * (h_7 > 0)
     bf16* cur = s_g0;
     bf16* nxt = s_g1;
     {
         const int k = tid;
-        float hwk[NOUT], dacc[NOUT];
-#pragma unroll
-        for (int j = 0; j < NOUT; ++j) {
-            hwk[j] = hw[j * H + k];
-            dacc[j] = 0.0f;
-        }
         float db = 0.0f;
-        for (int r = 0; r < ROWS; ++r) {
-            const float a = __bfloat162float(s_a[r * LDA + k]);
-            float g = 0.0f;
+        if (HEADS) {
+            if (tid < NOUT) {
+                float s = 0.0f;
+                for (int r = 0; r < ROWS; ++r) s += s_dy[r * 16 + tid];
+                atomicAdd(dhb + tid, s);
+            }
+            float hwk[NOUT], dacc[NOUT];
 #pragma unroll
             for (int j = 0; j < NOUT; ++j) {
-                const float d = s_dy[r * 16 + j];
-                g += d * hwk[j];
-                dacc[j] += a * d;
+                hwk[j] = hw[j * H + k];
+                dacc[j] = 0.0f;
             }
-            g = g * (a > 0.0f ? 1.0f : 0.0f);
-            db += g;
-            cur[r * LDA + k] = __float2bfloat16_rn(g);
-        }
+            for (int r = 0; r < ROWS; ++r) {
+                const float a = __bfloat162float(s_a[r * LDA + k]);
+                float g = 0.0f;
 #pragma unroll
-        for (int j = 0; j < NOUT; ++j) atomicAdd(dhw + j * H + k, dacc[j]);
+                for (int j = 0; j < NOUT; ++j) {
+                    const float d = s_dy[r * 16 + j];
+                    g += d * hwk[j];
+                    dacc[j] += a * d;
+                }
+                g = g * (a > 0.0f ? 1.0f : 0.0f);
+                db += g;
+                cur[r * LDA + k] = __float2bfloat16_rn(g);
+            }
+#pragma unroll
+            for (int j = 0; j < NOUT; ++j) atomicAdd(dhw + j * H + k, dacc[j]);
+        } else {
+            for (int r = 0; r < ROWS; ++r) {
+                const float a = __bfloat162float(s_a[r * LDA + k]);
+                const float d = row0 + r < n ? dout[(size_t)(row0 + r) * H + k] : 0.0f;
+                const float g = d * (a > 0.0f ? 1.0f : 0.0f);
+                db += g;
+                cur[r * LDA + k] = __float2bfloat16_rn(g);
+            }
+        }
         atomicAdd(dbias + (DEPTH - 1) * H + k, db);
     }
     __syncthreads();
@@ -328,7 +382,7 @@ deform_dgrad_kernel(const float* __restrict__ x, int n, int xl,
             nxt[r * LDA + c] = __float2bfloat16_rn(v);
         });
         if (i == SKIP_IN && warp < EMB / 16) {
-            // the skip's share of d emb: g_5 @ W5[:, :96]^T
+            // the skip's share of d emb: g_5 @ W5[:, :128]^T
             Acc sk[4][1];
             zero(sk);
             gemm64<wmma::row_major, 1>(sk, cur, LDA, H, W, K, warp * 16);
@@ -361,31 +415,32 @@ deform_dgrad_kernel(const float* __restrict__ x, int n, int xl,
         for (int r = 0; r < ROWS; ++r) s += s_demb[r * LDS + tid];
         atomicAdd(demb_sum + tid, s);
     }
-    if (tid < ROWS * 3) {
-        const int r = tid / 3, c = tid - 3 * (tid / 3);
-        if (row0 + r < n) {
-            const float xv = s_x[3 * r + c];
-            const float* d = s_demb + r * LDS;
-            float s = d[c];
-            for (int b = 1; b < xl / 3; ++b) {
-                const float f = (float)(1 << ((b - 1) >> 1));
-                const float sc = xv * f;
-                const float deriv = (b & 1) ? cosf(sc) : -sinf(sc);
-                s += d[3 * b + c] * deriv * f;
-            }
-            dx[(size_t)(row0 + r) * 3 + c] = s;
+    // dx: lane (s, b, c) is x_sc, sin(f x_sc) or cos(f x_sc)
+    const int xw = 3 * src;
+    for (int i = tid; i < ROWS * xw; i += THREADS) {
+        const int r = i / xw, sc = i - r * xw, s = sc / 3, c = sc - 3 * s;
+        if (row0 + r >= n) continue;
+        const float xv = s_x[i];
+        const float* d = s_demb + r * LDS + s * xl;
+        float acc = d[c];
+        for (int b = 1; b < xl / 3; ++b) {
+            const float f = (float)(1 << ((b - 1) >> 1));
+            const float a = xv * f;
+            const float deriv = (b & 1) ? cosf(a) : -sinf(a);
+            acc += d[3 * b + c] * deriv * f;
         }
+        dx[(size_t)(row0 + r) * xw + sc] = acc;
     }
 }
 
 constexpr size_t WGRAD_SMEM = sizeof(bf16) * ROWS * (LDG + LDI);
 
 __global__ void __launch_bounds__(THREADS)
-deform_wgrad_kernel(const bf16* __restrict__ emb,   // (N_pad, 96)
-                    const bf16* __restrict__ acts,  // (8, N_pad, 256)
-                    const bf16* __restrict__ G,     // (8, N_pad, 256)
-                    int n_pad, int rows_per_split,
-                    float* __restrict__ partial) {  // (splits, packed weight size)
+field_wgrad_kernel(const bf16* __restrict__ emb,   // (N_pad, 128)
+                   const bf16* __restrict__ acts,  // (8, N_pad, 256)
+                   const bf16* __restrict__ G,     // (8, N_pad, 256)
+                   int n_pad, int rows_per_split,
+                   float* __restrict__ partial) {  // (splits, packed weight size)
     extern __shared__ __align__(128) unsigned char smem[];
     bf16* s_g = (bf16*)smem;
     bf16* s_in = s_g + ROWS * LDG;
@@ -436,47 +491,74 @@ deform_wgrad_kernel(const bf16* __restrict__ emb,   // (N_pad, 96)
     wmma::store_matrix_sync(out + 16, acc[1], K, wmma::mem_row_major);
 }
 
-bool valid_lanes(int xl, int tl) { return xl >= 3 && xl % 3 == 0 && (xl / 3) % 2 == 1 && tl >= 0 && xl + tl <= EMB; }
+bool valid_lanes(int src, int xl, int tl) {
+    return src >= 1 && src <= MAX_SRC && xl >= 3 && xl % 3 == 0 && (xl / 3) % 2 == 1 && tl >= 0 &&
+           src * xl + tl <= EMB;
+}
+
+template <bool HEADS>
+cudaError_t launch_fwd(const void* x, int n, int src, int xl, const void* trow, int tl, const void* wpack,
+                       const void* bias, const void* hw, const void* hb, void* out, void* emb_out, void* acts_out,
+                       int n_pad, cudaStream_t stream) {
+    cudaFuncSetAttribute(field_fwd_kernel<HEADS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
+    field_fwd_kernel<HEADS><<<n_pad / ROWS, THREADS, FWD_SMEM, stream>>>(
+        (const float*)x, n, src, xl, (const float*)trow, tl, (const bf16*)wpack, (const float*)bias,
+        (const float*)hw, (const float*)hb, out, (bf16*)emb_out, (bf16*)acts_out, n_pad);
+    return cudaGetLastError();
+}
+
+template <bool HEADS>
+cudaError_t launch_dgrad(const void* x, int n, int src, int xl, const void* dout, const void* wpack, const void* hw,
+                         const void* acts, int n_pad, void* G, void* dbias, void* dhw, void* dhb, void* demb_sum,
+                         void* dx, cudaStream_t stream) {
+    cudaFuncSetAttribute(field_dgrad_kernel<HEADS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DGRAD_SMEM);
+    field_dgrad_kernel<HEADS><<<n_pad / ROWS, THREADS, DGRAD_SMEM, stream>>>(
+        (const float*)x, n, src, xl, (const float*)dout, (const bf16*)wpack, (const float*)hw, (const bf16*)acts,
+        n_pad, (bf16*)G, (float*)dbias, (float*)dhw, (float*)dhb, (float*)demb_sum, (float*)dx);
+    return cudaGetLastError();
+}
 
 }  // namespace
 
-extern "C" long deform_packed_size() { return layer_off(DEPTH); }
+extern "C" long field_packed_size() { return layer_off(DEPTH); }
 
-extern "C" int deform_fwd(const void* x, int n, const void* trow, int xl, int tl, const void* wpack,
-                          const void* bias, const void* hw, const void* hb, void* y, void* emb_out,
-                          void* acts_out, int n_pad, void* stream) {
+// heads != 0: out is y (N, 13) f32 and hw / hb the packed heads; heads == 0:
+// out is h (N, 256) bf16 and hw / hb are not read; with acts_out, h is its
+// last layer and out is not written (it may be null).
+extern "C" int field_fwd(int heads, const void* x, int n, int src, int xl, const void* trow, int tl,
+                         const void* wpack, const void* bias, const void* hw, const void* hb, void* out,
+                         void* emb_out, void* acts_out, int n_pad, void* stream) {
     // no early exit at n == 0: the padded rows (n_pad >= 64) still run, so
     // the saved tensors are written whatever n is
-    if (!valid_lanes(xl, tl) || n_pad % ROWS != 0 || n_pad < n || n_pad == 0) return (int)cudaErrorInvalidValue;
-    cudaFuncSetAttribute(deform_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
-    deform_fwd_kernel<<<n_pad / ROWS, THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
-        (const float*)x, n, (const float*)trow, xl, tl, (const bf16*)wpack, (const float*)bias,
-        (const float*)hw, (const float*)hb, (float*)y, (bf16*)emb_out, (bf16*)acts_out, n_pad);
-    return (int)cudaGetLastError();
+    if (!valid_lanes(src, xl, tl) || n_pad % ROWS != 0 || n_pad < n || n_pad == 0) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    return (int)(heads ? launch_fwd<true>(x, n, src, xl, trow, tl, wpack, bias, hw, hb, out, emb_out, acts_out, n_pad, s)
+                       : launch_fwd<false>(x, n, src, xl, trow, tl, wpack, bias, hw, hb, out, emb_out, acts_out, n_pad, s));
 }
 
-extern "C" int deform_bwd(const void* x, int n, int xl, const void* dy, const void* wpack, const void* hw,
-                          const void* emb, const void* acts, int n_pad, int splits, void* G, void* dbias,
-                          void* dhw, void* dhb, void* demb_sum, void* dx, void* partial, void* stream) {
+// heads != 0: dout is dy (N, 13) and hw, dhw, dhb are the heads'; heads ==
+// 0: dout is dh (N, 256) and those three are not touched.
+extern "C" int field_bwd(int heads, const void* x, int n, int src, int xl, const void* dout, const void* wpack,
+                         const void* hw, const void* emb, const void* acts, int n_pad, int splits, void* G,
+                         void* dbias, void* dhw, void* dhb, void* demb_sum, void* dx, void* partial, void* stream) {
     // no early exit at n == 0: every split of the weight-gradient partials
     // is written (zeros then), since the wrapper sums them
-    if (!valid_lanes(xl, 0) || n_pad % ROWS != 0 || n_pad < n || n_pad == 0 || splits < 1)
+    if (!valid_lanes(src, xl, 0) || n_pad % ROWS != 0 || n_pad < n || n_pad == 0 || splits < 1)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    cudaFuncSetAttribute(deform_dgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DGRAD_SMEM);
-    deform_dgrad_kernel<<<n_pad / ROWS, THREADS, DGRAD_SMEM, s>>>(
-        (const float*)x, n, xl, (const float*)dy, (const bf16*)wpack, (const float*)hw, (const bf16*)acts,
-        n_pad, (bf16*)G, (float*)dbias, (float*)dhw, (float*)dhb, (float*)demb_sum, (float*)dx);
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err = heads ? launch_dgrad<true>(x, n, src, xl, dout, wpack, hw, acts, n_pad, G, dbias, dhw, dhb,
+                                                 demb_sum, dx, s)
+                            : launch_dgrad<false>(x, n, src, xl, dout, wpack, hw, acts, n_pad, G, dbias, dhw, dhb,
+                                                  demb_sum, dx, s);
     if (err != cudaSuccess) return (int)err;
     int tiles = 0;
     for (int i = 0; i < DEPTH; ++i) tiles += wgrad_tiles(i);
     const int chunks = n_pad / ROWS;
     const int rows_per_split = ((chunks + splits - 1) / splits) * ROWS;
     dim3 grid(tiles, splits);
-    deform_wgrad_kernel<<<grid, THREADS, WGRAD_SMEM, s>>>((const bf16*)emb, (const bf16*)acts, (const bf16*)G,
-                                                          n_pad, rows_per_split, (float*)partial);
+    field_wgrad_kernel<<<grid, THREADS, WGRAD_SMEM, s>>>((const bf16*)emb, (const bf16*)acts, (const bf16*)G, n_pad,
+                                                         rows_per_split, (float*)partial);
     return (int)cudaGetLastError();
 }
 
-extern "C" const char* deform_field_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+extern "C" const char* field_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -25,7 +25,7 @@ import torch
 
 from ..data.cameras import Camera
 from ..models.densify import DensifyConfig, DensifyState, refine, update_stats, zero_moment_rows
-from ..models.fields import DeformField
+from ..models.fields import ControlField, DeformField
 from ..models.gaussians import GaussianParams
 from ..models.splat_model import SplatConfig, background_color, forward, loss_fn, psnr
 from ..ops.flow import flow_supervision_loss, query_3d_gaussian_flow, rendered_flow_loss
@@ -43,14 +43,18 @@ class TrainState:
     densify: DensifyState
     step: int
     generator: torch.Generator
+    control: Optional[ControlField] = None  # stage 2
 
 
-def params_by_group(params: GaussianParams, deform: Optional[DeformField]) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The optimizer groups: one per Gaussian attribute, plus "deform" with
-    the field's weights by state_dict name."""
+def params_by_group(
+    params: GaussianParams, deform: Optional[DeformField], control: Optional[ControlField] = None
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The optimizer groups: one per Gaussian attribute, plus "deform" and
+    "control" with each field's weights by state_dict name."""
     groups = {k: {k: params[k]} for k in GAUSSIAN_GROUPS}
-    if deform is not None:
-        groups["deform"] = dict(deform.named_parameters())
+    for name, field in (("deform", deform), ("control", control)):
+        if field is not None:
+            groups[name] = dict(field.named_parameters())
     return groups
 
 
@@ -62,17 +66,21 @@ def create_train_state(
     *,
     generator: torch.Generator,
     step: int = 0,
+    control: Optional[ControlField] = None,
 ) -> TrainState:
-    """A fresh state: zero Adam moments and densification statistics."""
+    """A fresh state: zero Adam moments and densification statistics. With
+    `control` (stage 2) the deform field is frozen: it gets no Adam group."""
     params = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    groups = params_by_group(params, None, control) if control is not None else params_by_group(params, deform)
     return TrainState(
         params=params,
         alive=alive.clone(),
         deform=deform,
-        opt_states=init_opt_states(optimizers, params_by_group(params, deform)),
+        opt_states=init_opt_states(optimizers, groups),
         densify=DensifyState.create(alive.shape[0], device=alive.device),
         step=step,
         generator=generator,
+        control=control,
     )
 
 

@@ -1,12 +1,15 @@
-"""Deformation field (twin of `freegaussian_tpu/models/fields.py`).
+"""Deformation and control fields (twin of `freegaussian_tpu/models/fields.py`).
 
-`DeformField` is the reference's time-conditioned SE(3) field as an
-nn.Module whose submodule names are the reference checkpoint's keys
-(`timenet.0`, `timenet.2`, `linear.0-7`, `branch_w`, `branch_v`,
-`gaussian_rotation`, `gaussian_scaling`), so a reference state_dict loads
-directly. Its forward follows `deform_apply_headsfused`: the timenet runs
+`DeformField` is the reference's time-conditioned SE(3) field and
+`ControlField` its stage-2 control field, as nn.Modules whose submodule
+names are the reference checkpoint's keys (deform: `timenet.0`, `timenet.2`,
+`linear.0-7`, `branch_w`, `branch_v`, `gaussian_rotation`,
+`gaussian_scaling`; control: `linear.0-7`, `d_xyz`, `d_rot`, `d_scale`), so a
+reference state_dict loads directly. Their split-linear forwards follow
+`deform_apply_headsfused` / `control_apply_headsfused`: the timenet runs
 once for a shared frame time and is broadcast, the trunk has its skip after
-layer 4, and the four heads compute in f32 from the trunk's output.
+layer 4, and the heads compute in f32 from the trunk's output as one packed
+product.
 
 Every layer whose input is a list (the skip layer takes [x_emb, t_emb, h])
 is a split linear as in the JAX package: one product per input against its
@@ -16,15 +19,23 @@ package's; what remains is the f32 accumulation order inside each product.
 Every f32 product (the heads, and the trunk in f32 mode) is held to full
 f32 on the GPU (no TF32).
 
-With `fused=True` (bf16, 8x256, one shared frame time) the embedding, the
-trunk and the heads run as one kernel pair instead (`ops/mlp_cuda.py`, the
-port of the JAX package's `deform_apply_fused(impl="fused")`): bf16 product
-operands with f32 accumulation and bf16-stored activations, the numerics of
-`mlp_pallas.py`; the timenet and the screw-axis normalization stay here.
+`impl` picks the trunk's implementation for an 8x256 field (`ops/mlp_cuda.py`,
+bf16 product operands with f32 accumulation and bf16-stored activations, the
+numerics of `mlp_pallas.py`):
+  "split"   the split-linear chain above;
+  "fused"   (deform, bf16) the embedding, the trunk and the four heads as one
+            kernel pair, the port of `deform_apply_fused(impl="fused")`;
+  "pallas"  the embedding and the trunk as one kernel pair, the heads in f32
+            outside, the port of `deform_apply_fused(impl="pallas")` (deform,
+            bf16, with the timenet output as the shared time row) and of
+            `control_apply_fused(impl="pallas")` (control: the embeddings of
+            the position and of the per-point control value).
+The timenet and the screw-axis normalization stay here in every mode.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -32,9 +43,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.math import positional_embed, safe_norm
-from ..ops.mlp_cuda import deform_field
+from ..ops.mlp_cuda import deform_field, field_trunk
 
 HEAD_NAMES = ("branch_w", "branch_v", "gaussian_rotation", "gaussian_scaling")
+CONTROL_HEAD_NAMES = ("d_xyz", "d_rot", "d_scale")
+IMPLS = ("split", "fused", "pallas")
 
 
 def _new_linear(fan_in: int, fan_out: int) -> nn.Linear:
@@ -109,12 +122,14 @@ class DeformField(nn.Module):
         multires: int = 10,
         is_blender: bool = True,
         compute_dtype: torch.dtype = torch.float32,
-        fused: bool = False,
+        impl: str = "split",
     ):
         super().__init__()
-        if fused and (depth, width, compute_dtype) != (8, 256, torch.bfloat16):
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        if impl != "split" and (depth, width, compute_dtype) != (8, 256, torch.bfloat16):
             raise ValueError(f"the fused deform field is 8x256 bf16, got {depth}x{width} {compute_dtype}")
-        self.fused = fused
+        self.impl = impl
         self.depth = depth
         self.multires = multires
         self.is_blender = is_blender
@@ -144,10 +159,7 @@ class DeformField(nn.Module):
 
         Returns (d_xyz SE3Screw, d_rotation (N, 4), d_scaling (N, 3))."""
         ct = self.compute_dtype
-        if x.is_cuda:
-            # f32 products (the heads always, the trunk in f32 mode) stay full f32
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        _no_tf32(x)  # the heads always, the trunk in f32 mode
         t_emb = positional_embed(t, self.t_multires)
         if self.is_blender:
             t0, t2 = self.timenet[0], self.timenet[2]
@@ -156,12 +168,13 @@ class DeformField(nn.Module):
         heads = [getattr(self, n) for n in HEAD_NAMES]
         w_all = torch.cat([hd.weight for hd in heads], dim=0)
         b_all = torch.cat([hd.bias for hd in heads], dim=0)
-        if self.fused:
-            if t_emb.shape[0] != 1:
-                raise ValueError("the fused deform field takes one shared frame time")
-            y = deform_field(
-                x, t_emb[0], [l.weight for l in self.linear], [l.bias for l in self.linear], w_all, b_all
-            )
+        if self.impl != "split" and t_emb.shape[0] != 1:
+            raise ValueError("the fused deform field takes one shared frame time")
+        ws, bs = [l.weight for l in self.linear], [l.bias for l in self.linear]
+        if self.impl == "fused":
+            y = deform_field(x, t_emb[0], ws, bs, w_all, b_all)
+        elif self.impl == "pallas":
+            y = _linear(field_trunk(x, None, t_emb[0], ws, bs), w_all, b_all, torch.float32)
         else:
             y = self._split_forward(x, t_emb, w_all, b_all)
         w, v, rotation, scaling = y[:, 0:3], y[:, 3:6], y[:, 6:10], y[:, 10:13]
@@ -189,3 +202,68 @@ class DeformField(nn.Module):
             h = [h]
         h = [a.float() for a in h]
         return _linear(h, w_all, b_all, torch.float32)
+
+
+def _no_tf32(x: torch.Tensor):
+    if x.is_cuda:
+        # f32 products stay full f32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+class ControlField(nn.Module):
+    """Control field: (position, blended control value) -> per-Gaussian
+    (d_xyz (N, 3), d_rot (N, 4), d_scale (N, 3)) (reference
+    freegaussian_model.py:1117-1145). An f32 field, as in the JAX package;
+    with impl="pallas" (8x256 only) its trunk runs the bf16 kernel pair."""
+
+    def __init__(self, depth: int = 8, width: int = 256, multires: int = 10, impl: str = "split"):
+        super().__init__()
+        if impl not in ("split", "pallas"):
+            raise ValueError(f"the control field's impl is 'split' or 'pallas', got {impl!r}")
+        if impl == "pallas" and (depth, width) != (8, 256):
+            raise ValueError(f"the fused control trunk is 8x256, got {depth}x{width}")
+        self.impl = impl
+        self.depth = depth
+        self.multires = multires
+        self.skip_at = depth // 2
+        in_ch = 2 * 3 * (1 + 2 * multires)
+        self.linear = nn.ModuleList(
+            [_new_linear(in_ch, width)]
+            + [_new_linear(width + in_ch if i == self.skip_at else width, width) for i in range(depth - 1)]
+        )
+        head_in = width + in_ch if self.skip_at == depth - 1 else width
+        self.d_xyz = _new_linear(head_in, 3)
+        self.d_rot = _new_linear(head_in, 4)
+        self.d_scale = _new_linear(head_in, 3)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> "ControlField":
+        """torch nn.Linear's default init, U(+-1/sqrt(fan_in)) for weights and
+        biases, drawn from `generator` (on the CPU) in state_dict order."""
+        for layer in [*self.linear, *(getattr(self, n) for n in CONTROL_HEAD_NAMES)]:
+            bound = 1.0 / math.sqrt(layer.weight.shape[1])
+            for p in (layer.weight, layer.bias):
+                p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
+        return self
+
+    def forward(self, x: torch.Tensor, value: torch.Tensor):
+        """x: (N, 3) positions; value: (N, 3) or (1, 3) blended control state.
+        Returns (d_xyz, d_rot, d_scale), f32."""
+        _no_tf32(x)
+        value = value.expand(x.shape[0], value.shape[-1])
+        heads = [getattr(self, n) for n in CONTROL_HEAD_NAMES]
+        w_all = torch.cat([hd.weight for hd in heads], dim=0)
+        b_all = torch.cat([hd.bias for hd in heads], dim=0)
+        if self.impl == "pallas":
+            h = field_trunk(x, value, None, [l.weight for l in self.linear], [l.bias for l in self.linear])
+        else:
+            x_emb = positional_embed(x.float(), self.multires)
+            v_emb = positional_embed(value.float(), self.multires)
+            h = [x_emb, v_emb]
+            for i, layer in enumerate(self.linear):
+                h = F.relu(_linear(h, layer.weight, layer.bias, torch.float32))
+                if i == self.skip_at:
+                    h = [x_emb, v_emb, h]
+        y = _linear(h, w_all, b_all, torch.float32)  # the three heads as one (10, fan_in) product
+        return y[:, 0:3], y[:, 3:7], y[:, 7:10]

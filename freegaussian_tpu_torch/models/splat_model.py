@@ -32,7 +32,7 @@ from ..data.cameras import Camera
 from ..ops.math import num_sh_bases, safe_norm
 from ..ops.projection import project_gaussians
 from ..ops.rasterize import rasterization
-from .fields import DeformField, apply_se3_deform
+from .fields import ControlField, DeformField, apply_se3_deform
 from .gaussians import PARAM_NAMES, GaussianParams, colors_from_features
 from .ssim import ssim
 
@@ -43,13 +43,22 @@ class SplatConfig:
     (chunk, capacities, the remat choices) are kept so configs carry over,
     and are not read by the port.
 
-    `deform_impl` picks the bf16 deform field's implementation: "fused" (the
-    default here) runs it as the kernel pair of `ops/mlp_cuda.py`, the port
-    of the JAX package's `impl="fused"` Pallas pair; any other value runs
-    the split-linear chain, the twin of the JAX package's "headsfused" /
-    flax path (its default, and its only path off the TPU). An f32 field
-    (`deform_bf16=False`) always runs the split-linear chain, as in the JAX
-    package."""
+    `deform_impl` picks the field MLPs' implementation, as the JAX package's
+    `make_deform_apply` / `make_control_apply` do on the TPU:
+      "fused"   (the default here) the bf16 deform field as the kernel pair
+                of `ops/mlp_cuda.py` that includes its heads, the port of
+                the JAX package's `impl="fused"` Pallas pair; the control
+                field runs its f32 split-linear chain;
+      "pallas"  the bf16 deform trunk and the control trunk as the kernel
+                pair without heads (heads in f32 outside), the port of the
+                JAX package's `impl="pallas"` (`fused_deform_trunk`,
+                `fused_control_trunk`);
+      anything else ("headsfused", "flax", ...) the split-linear chains,
+                the twins of the JAX package's "headsfused" / flax paths
+                (its default, and its only path off the TPU).
+    An f32 deform field (`deform_bf16=False`) always runs the split-linear
+    chain, as in the JAX package; the control field does not read
+    `deform_bf16`."""
 
     warm_up: int = 3000
     num_downscales: int = 2
@@ -84,13 +93,21 @@ class SplatConfig:
 
 
 def make_deform_field(cfg: SplatConfig, depth: int = 8, width: int = 256) -> DeformField:
+    impl = cfg.deform_impl if cfg.deform_bf16 and cfg.deform_impl in ("fused", "pallas") else "split"
     return DeformField(
         depth=depth,
         width=width,
         is_blender=cfg.is_blender,
         compute_dtype=torch.bfloat16 if cfg.deform_bf16 else torch.float32,
-        fused=cfg.deform_bf16 and cfg.deform_impl == "fused",
+        impl=impl,
     )
+
+
+def make_control_field(cfg: SplatConfig, depth: int = 8, width: int = 256) -> ControlField:
+    """The control field: its trunk on the kernel pair under "pallas", else
+    the f32 split-linear chain (the JAX package's "fused" falls through to
+    its flax f32 path too)."""
+    return ControlField(depth=depth, width=width, impl="pallas" if cfg.deform_impl == "pallas" else "split")
 
 
 def downscale_factor(cfg: SplatConfig, step: int, train: bool) -> int:
@@ -196,6 +213,22 @@ def _forward(
             )
             extra_channels = proj_t.means2d - proj_0.means2d  # (N, 2) screen motion
 
+    return render_gaussians(
+        cfg, means, quats_n, scales_lin, opacities, sh_coeffs, alive, camera,
+        sh_degree_now=sh_degree_now, render_mode=render_mode, background=background,
+        means2d_sink=means2d_sink, extra_channels=extra_channels, means_prev=means_prev,
+    )
+
+
+def render_gaussians(
+    cfg: SplatConfig, means, quats_n, scales_lin, opacities, sh_coeffs, alive, camera: Camera, *,
+    sh_degree_now: int, render_mode: str, background: Optional[torch.Tensor] = None,
+    means2d_sink: Optional[torch.Tensor] = None, extra_channels: Optional[torch.Tensor] = None,
+    means_prev: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """`rasterization` of the (deformed) Gaussians, then the background
+    composite and clamp and the detached-max depth backfill: the tail that
+    the stage-1 and the stage-2 forwards share."""
     render, alpha, info = rasterization(
         means,
         quats_n,

@@ -1,1 +1,1 @@
-"""Offline rendering (torch)."""
+"""Offline rendering and the cluster mask file (torch)."""

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..data.cameras import Camera
+from ..models.control_model import Controller
 from .png import encode_png
 
 _PAGE = """<!DOCTYPE html>
@@ -127,6 +128,18 @@ def model_render_fn(model) -> Callable:
     return render_fn
 
 
+def control_render_fn(model) -> Callable:
+    """render_fn(camera, atrb_values|None) -> (H, W, 3) rgb over a stage-2
+    `ControlModel`: the sliders' (M, 3) attribute values drive its control
+    field (zeros when the request has none). Serve it with
+    `num_attributes=model.num_attributes`."""
+
+    def render_fn(camera, atrb_values=None):
+        return model(camera, atrb_values)["rgb"]
+
+    return render_fn
+
+
 class ViewerServer:
     """render_fn(camera, atrb_values|None) -> (H, W, 3) float rgb. Cameras are
     made on `device`; `port=0` binds an ephemeral port, read back from
@@ -180,7 +193,10 @@ class ViewerServer:
                     atrb = None
                     if viewer.num_attributes and q.get("atrb", [""])[0]:
                         flat = np.asarray([float(v) for v in q["atrb"][0].split(",")], np.float32)
-                        atrb = 0.1 * flat.reshape(viewer.num_attributes, 3)
+                        sliders = Controller(viewer.num_attributes)
+                        for i, v in enumerate(flat.reshape(viewer.num_attributes, 3)):
+                            sliders.set_vector3(i, v)
+                        atrb = sliders.get_atrb_vals()
                     with viewer._lock:
                         body = render_orbit_view(
                             viewer.render_fn,

@@ -3,9 +3,14 @@ PyTorch port on one NVIDIA GPU.
 
     python3 profile_serve.py          # serving
     python3 profile_serve.py train    # the stage-1 training step
+    python3 profile_serve.py stage2   # serving the stage-2 slider viewer
+    python3 profile_serve.py train2   # the stage-2 (control) training step
 
 Builds the scene of `chip_smoke.py` (100k Gaussians at the bench.py
-operating point, a full 8x256 bf16 deform field).
+operating point, a full 8x256 bf16 deform field), and for the stage-2
+modes its stage-2 scene (the seeded control field and cluster mask, with
+deform_impl "pallas": the deform and control trunks on the field-trunk
+kernels).
 
 Serving, for each frame size (640x480 and the native 1296x968, tile 32 as
 SplatConfig serves):
@@ -38,6 +43,14 @@ flow losses on), after 3 warm-up steps:
             the step's inputs (median of REPS), since autograd runs its
             backward inside the backward layer
   device    one `torch.profiler` window over REPS steps, as for serving
+
+Stage 2: `stage2` times requests at 640x480 with the sliders at
+`chip_smoke.SLIDERS[0]` as for serving, the control field taking the deform
+field's place among the layers; `train2` times the step of `chip_smoke.py`'s
+train2 phase as for training, with the layers control state (the two
+deform-trunk calls), control field forward, projection, SH, binning,
+compositor forward, SSIM + L1, the backward (inside it the field trunk's
+backward, the compositor backward and the reduction) and Adam.
 
 The layer timings add synchronizations the plain request or step does not
 have, so they sum to more; the request, the step and the device share come
@@ -126,6 +139,85 @@ def _device_window(fn, reps: int) -> dict:
     }
 
 
+def _synced_layers(call, patched, inner=()) -> dict:
+    """Median per-layer host ms of REPS calls with each layer synced; the
+    "backward" layer less its `inner` layers becomes "backward other", and
+    the glue is the call less all layers."""
+    import torch
+
+    runs, totals = defaultdict(list), []
+    for _ in range(REPS):
+        times, undo = _wrap_layers(patched)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            totals.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            undo()
+        for k, v in times.items():
+            runs[k].append(v)
+    layers = {k: statistics.median(v) for k, v in runs.items()}
+    if inner:
+        # the backward holds these: count each once
+        layers["backward other"] = layers.pop("backward") - sum(layers[k] for k in inner)
+    layers["glue"] = statistics.median(totals) - sum(layers.values())
+    return layers
+
+
+def _median_ms(fn, warmup: int = 1) -> tuple:
+    """(median ms, all ms) of REPS calls of fn after `warmup` calls."""
+    for _ in range(warmup):
+        fn()
+    ts = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts), ts
+
+
+def profile_train2(model2) -> dict:
+    """The stage-2 step, as `profile_train` times the stage-1 one."""
+    import torch
+
+    from freegaussian_tpu_torch.engine import control_train_step
+    from freegaussian_tpu_torch.models import control_model, fields
+    from freegaussian_tpu_torch.ops import mlp_cuda, rasterize, rasterize_cuda
+
+    width, height = chip_smoke.SERVE_WH
+    state, step_fn, camera, batch = chip_smoke.build_control_train_case(model2, width, height)
+
+    def step():
+        step_fn(state, camera, batch, 3)
+        torch.cuda.synchronize()
+
+    step_med, step_ms = _median_ms(step, warmup=3)
+    patched = [
+        (control_model, "control_state_from_deform", "control state"),
+        (fields.ControlField, "forward", "control fwd"),
+        (rasterize, "project_gaussians", "projection"),
+        (rasterize, "sh_colors_for_camera", "SH"),
+        (rasterize_cuda, "build_intersections", "binning"),
+        (rasterize_cuda, "rasterize_tiles", "compositor fwd"),
+        (control_train_step, "loss_fn", "SSIM + L1"),
+        (torch.autograd, "grad", "backward"),
+        (mlp_cuda, "field_trunk_bwd", "field bwd"),
+        (rasterize_cuda, "rasterize_tiles_bwd", "compositor bwd"),
+        (rasterize_cuda, "reduce_rows_by_gid", "reduction"),
+        (control_train_step, "apply_group_updates", "Adam"),
+    ]
+    out = {
+        "mode": f"train2 {width}x{height} tile {model2.cfg.tile_size} deform_impl {model2.cfg.deform_impl}",
+        "step_ms_median": step_med,
+        "step_ms_all": step_ms,
+        "train_step_pixels_per_sec": width * height / (step_med / 1e3),
+        "layers_ms_median_synced": _synced_layers(step, patched, ("field bwd", "compositor bwd", "reduction")),
+    }
+    out.update(_device_window(step, REPS))
+    return out
+
+
 def profile_train(model) -> dict:
     import torch
 
@@ -141,13 +233,7 @@ def profile_train(model) -> dict:
         step_fn(state, camera, batch, 3, camera0=camera0)
         torch.cuda.synchronize()
 
-    for _ in range(3):
-        step()
-    step_ms = []
-    for _ in range(REPS):
-        t0 = time.perf_counter()
-        step()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+    step_med, step_ms = _median_ms(step, warmup=3)
 
     patched = [
         (fields.DeformField, "forward", "deform fwd"),
@@ -167,22 +253,7 @@ def profile_train(model) -> dict:
         (train_step, "apply_group_updates", "Adam"),
         (train_step, "update_stats", "densify stats"),
     ]
-    runs, totals = defaultdict(list), []
-    for _ in range(REPS):
-        times, undo = _wrap_layers(patched)
-        try:
-            t0 = time.perf_counter()
-            step()
-            totals.append((time.perf_counter() - t0) * 1e3)
-        finally:
-            undo()
-        for k, v in times.items():
-            runs[k].append(v)
-    layers = {k: statistics.median(v) for k, v in runs.items()}
-    # the backward holds these three: count each once
-    inner = ("deform bwd", "compositor bwd", "reduction")
-    layers["backward other"] = layers.pop("backward") - sum(layers[k] for k in inner)
-    layers["glue"] = statistics.median(totals) - sum(layers.values())
+    layers = _synced_layers(step, patched, ("deform bwd", "compositor bwd", "reduction"))
 
     # the deform field alone: forward, then forward + backward to its weights
     deform = state.deform
@@ -207,21 +278,12 @@ def profile_train(model) -> dict:
         torch.autograd.grad(outputs(), weights, cots)
         torch.cuda.synchronize()
 
-    def median_ms(fn):
-        fn()
-        ts = []
-        for _ in range(REPS):
-            t0 = time.perf_counter()
-            fn()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(ts)
-
-    fwd_ms, fwd_bwd_ms = median_ms(deform_fwd), median_ms(deform_fwd_bwd)
+    fwd_ms, fwd_bwd_ms = _median_ms(deform_fwd)[0], _median_ms(deform_fwd_bwd)[0]
     out = {
         "mode": f"train {width}x{height} tile {state_tile}",
-        "step_ms_median": statistics.median(step_ms),
+        "step_ms_median": step_med,
         "step_ms_all": step_ms,
-        "train_step_pixels_per_sec": width * height / (statistics.median(step_ms) / 1e3),
+        "train_step_pixels_per_sec": width * height / (step_med / 1e3),
         "layers_ms_median_synced": layers,
         "deform_alone_ms": {"fwd": fwd_ms, "fwd+bwd": fwd_bwd_ms, "bwd": fwd_bwd_ms - fwd_ms, "calls_per_step": 2},
     }
@@ -229,31 +291,26 @@ def profile_train(model) -> dict:
     return out
 
 
-def profile_size(model, width: int, height: int) -> dict:
+def profile_size(model, width: int, height: int, stage2: bool = False) -> dict:
+    """One frame size's request, layers and device window; with `stage2`
+    the slider viewer over the stage-2 model at `chip_smoke.SLIDERS[0]`."""
     import torch
 
     from freegaussian_tpu_torch.models import fields
     from freegaussian_tpu_torch.ops import rasterize, rasterize_cuda
     from freegaussian_tpu_torch.viewer import server
-    from freegaussian_tpu_torch.viewer.server import model_render_fn, render_orbit_view
+    from freegaussian_tpu_torch.viewer.server import control_render_fn, model_render_fn, render_orbit_view
 
-    render_fn = model_render_fn(model)
+    render_fn = control_render_fn(model) if stage2 else model_render_fn(model)
+    atrb = 0.1 * chip_smoke.SLIDERS[0] if stage2 else None
 
     def request():
-        return render_orbit_view(render_fn, width=width, height=height, device=DEVICE, **VIEW)
+        return render_orbit_view(render_fn, width=width, height=height, device=DEVICE, atrb_values=atrb, **VIEW)
 
-    for _ in range(3):
-        request()
-    torch.cuda.synchronize()
-
-    req_ms = []
-    for _ in range(REPS):
-        t0 = time.perf_counter()
-        request()
-        req_ms.append((time.perf_counter() - t0) * 1e3)
+    req_med, req_ms = _median_ms(request, warmup=3)
 
     patched = [
-        (fields.DeformField, "forward", "deform"),
+        (fields.ControlField, "forward", "control") if stage2 else (fields.DeformField, "forward", "deform"),
         (rasterize, "project_gaussians", "projection"),
         (rasterize, "sh_colors_for_camera", "sh"),
         (rasterize_cuda, "build_intersections", "binning"),
@@ -261,25 +318,11 @@ def profile_size(model, width: int, height: int) -> dict:
         (server, "to_rgb8", "copy+quantize"),
         (server, "encode_png", "png"),
     ]
-    layer_runs = defaultdict(list)
-    totals = []
-    for _ in range(REPS):
-        times, undo = _wrap_layers(patched)
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            request()
-            totals.append((time.perf_counter() - t0) * 1e3)
-        finally:
-            undo()
-        for k, v in times.items():
-            layer_runs[k].append(v)
-    layers = {k: statistics.median(v) for k, v in layer_runs.items()}
-    layers["glue"] = statistics.median(totals) - sum(layers.values())
+    layers = _synced_layers(request, patched)
     window = _device_window(request, REPS)
     return {
-        "size": f"{width}x{height}",
-        "request_ms_median": statistics.median(req_ms),
+        "size": f"{width}x{height}" + (" stage2 sliders" if stage2 else ""),
+        "request_ms_median": req_med,
         "request_ms_all": req_ms,
         "layers_ms_median_synced": layers,
         "device_ms_per_request": window["device_ms_per_call"],
@@ -296,10 +339,17 @@ def main():
     with tempfile.TemporaryDirectory(prefix="profile_serve_") as tmp:
         ckpt = chip_smoke.write_scene_checkpoint(Path(tmp) / "step-000030000.ckpt", chip_smoke.N_GAUSS)
         model = load_reference_checkpoint(ckpt, device=DEVICE)
-    if sys.argv[1:] == ["train"]:
+        mode = sys.argv[1:]
+        if mode in (["stage2"], ["train2"]):
+            _, _, model2 = chip_smoke.phase_scene2(Path(tmp), model)
+    if mode == ["train"]:
         print(json.dumps(profile_train(model)))
-    elif sys.argv[1:]:
-        sys.exit(f"usage: {sys.argv[0]} [train]")
+    elif mode == ["stage2"]:
+        print(json.dumps(profile_size(model2, *chip_smoke.SERVE_WH, stage2=True)))
+    elif mode == ["train2"]:
+        print(json.dumps(profile_train2(model2)))
+    elif mode:
+        sys.exit(f"usage: {sys.argv[0]} [train | stage2 | train2]")
     else:
         for width, height in SIZES:
             print(json.dumps(profile_size(model, width, height)))

@@ -93,7 +93,7 @@ def test_fused_field_matches_jax_pallas(n, t_lanes):
 
 
 def test_deform_field_module_fused_matches_jax():
-    """The port's `DeformField(fused=True)` (timenet, fused field, screw-axis
+    """The port's `DeformField(impl="fused")` (timenet, fused field, screw-axis
     normalization) against `deform_apply_fused(impl="fused")` on a flax bf16
     init handed over by the weight bridge: outputs, and the weight gradients
     of a loss over all four outputs, timenet included."""
@@ -102,7 +102,7 @@ def test_deform_field_module_fused_matches_jax():
     dvars = field.init(jax.random.PRNGKey(22), jnp.zeros((1, 3)), jnp.zeros((1, 1)))
     model = t_compat.state_from_jax_arrays(params, alive, jax.tree.map(np.asarray, dvars), cfg=TConfig(), device="cpu")
     deform = model.deform.requires_grad_(True)
-    assert deform.fused and TConfig().deform_impl == "fused"
+    assert deform.impl == "fused" and TConfig().deform_impl == "fused"
     x = params["means"]
     t = np.full((1, 1), 0.45, np.float32)
 
@@ -132,11 +132,11 @@ def test_pack_trunk_round_trip():
 
 def test_fused_field_takes_only_its_shape():
     with pytest.raises(ValueError, match="8x256 bf16"):
-        DeformField(depth=2, width=32, compute_dtype=torch.bfloat16, fused=True)
+        DeformField(depth=2, width=32, compute_dtype=torch.bfloat16, impl="fused")
     with pytest.raises(ValueError, match="8x256 bf16"):
-        DeformField(compute_dtype=torch.float32, fused=True)
+        DeformField(compute_dtype=torch.float32, impl="fused")
     model = t_compat.SplatModel(TConfig(deform_bf16=False), 4, device="cpu")
-    assert not model.deform.fused  # an f32 field runs the split-linear chain
+    assert model.deform.impl == "split"  # an f32 field runs the split-linear chain
     fused = t_compat.SplatModel(TConfig(), 4, device="cpu").deform
     with pytest.raises(ValueError, match="one shared frame time"):
         fused(torch.zeros(4, 3), torch.zeros(4, 1))

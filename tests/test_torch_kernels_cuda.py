@@ -1,5 +1,6 @@
-"""The CUDA tile compositor and its backward, and the fused deform field's
-kernel pair, against their plain PyTorch versions, on a GPU.
+"""The CUDA tile compositor and its backward, and the field-MLP kernel pair
+(the fused deform field with its heads, the field trunk of the deform and
+control fields), against their plain PyTorch versions, on a GPU.
 
 A CUDA kernel has no CPU mode, so every test here is marked `cuda` and skips
 without a card. The file imports neither JAX nor the JAX package, so it also
@@ -16,7 +17,8 @@ the plain version differentiates the running product). Deform field: outputs
 max |diff| / max |plain| < 1e-2 and normwise < 5e-3 (bf16 activations round
 alike except where the f32 sums, taken in another order, straddle a bf16
 rounding boundary); the backward from the same saved activations, so with
-the same ReLU masks, max 1e-2 and normwise 1e-3.
+the same ReLU masks, max 1e-2 and normwise 1e-3. The field trunk: the same
+budgets on its bf16 output and its gradients.
 """
 
 import numpy as np
@@ -299,6 +301,120 @@ def test_cuda_deform_field_gradients_match_cpu(cuda_device):
         y = mlp_cuda.deform_field(x, leaves[0], ws, bs, leaves[1], leaves[2])
         loss = (y * torch.linspace(-1, 1, 13, device=dev)).sum() + (y ** 2).sum()
         grads[dev.type] = [p.cpu() for p in torch.autograd.grad(loss, leaves + ws + bs)]
+    for i, (a, b) in enumerate(zip(grads["cuda"], grads["cpu"])):
+        _, nm = _rel(a, b)
+        assert nm <= 3e-2, (i, nm)
+
+
+def _field_inputs(device, n, seed, mode):
+    """Seeded trunk weights and N(0, 1) sources in the trunk wrappers'
+    layout: "control" two sources (positions, N(0, 0.3) control values),
+    no time row; "deform" one source and a 30-lane time row."""
+    rng = np.random.default_rng(seed)
+    sources, t_lanes = (2, 0) if mode == "control" else (1, 30)
+    in_ch = 63 * sources + t_lanes
+    fan_in = [in_ch] + [256] * 7
+    fan_in[5] = in_ch + 256
+    ws = [torch.tensor(rng.normal(size=(256, f)) / np.sqrt(f), dtype=torch.float32) for f in fan_in]
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    xsrc = np.concatenate([rng.normal(size=(n, 3)), rng.normal(scale=0.3, size=(n, 3))], axis=1)[:, : 3 * sources]
+    return (
+        t(np.ascontiguousarray(xsrc)), t(rng.normal(size=t_lanes)), mlp_cuda.pack_trunk(ws, in_ch).to(device),
+        t(rng.normal(size=(8, 256)) * 0.01), sources, 63,
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["control", "deform"])
+@pytest.mark.parametrize("n", [1, 130, 5000])
+def test_cuda_field_fwd_matches_plain(cuda_device, mode, n):
+    args = _field_inputs(cuda_device, n, n + 1, mode)
+    before = mlp_cuda.LAUNCHES["field_fwd"]
+    h, (emb, acts) = mlp_cuda.field_trunk_fwd(*args, True)
+    h_serve, saved = mlp_cuda.field_trunk_fwd(*args, False)
+    torch.cuda.synchronize()
+    assert mlp_cuda.LAUNCHES["field_fwd"] == before + 2 and saved is None
+    assert h.shape == (n, 256) and h.dtype == torch.bfloat16
+    assert torch.equal(h, h_serve) and torch.equal(h, acts[-1, :n])
+    hp, (embp, actsp) = mlp_cuda.field_trunk_fwd_plain(*args, True)
+    mx, nm = _rel(h.float(), hp.float())
+    assert mx <= 1e-2 and nm <= 5e-3, (mx, nm)
+    # the embedding rounds alike but for rare f32 near-ties of sin / cos
+    assert int((emb != embp).sum()) <= max(1, emb.numel() // 1000)
+    assert int((acts[0, :n] != actsp[0, :n]).sum()) <= max(1, n * 256 // 1000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["control", "deform"])
+def test_cuda_field_bwd_matches_plain(cuda_device, mode):
+    """From the same saved tensors (so the same ReLU masks): dxsrc, the row
+    sum of d emb (its time lanes are dtrow), the packed dW and d bias."""
+    n = 3000
+    args = _field_inputs(cuda_device, n, 17, mode)
+    xsrc, _, wpack, _, sources, x_lanes = args
+    _, (emb, acts) = mlp_cuda.field_trunk_fwd(*args, True)
+    g = torch.Generator(device="cpu").manual_seed(18)
+    dh = torch.randn(n, 256, generator=g).to(cuda_device).bfloat16().float()
+    bargs = (xsrc, dh, wpack, emb, acts, sources, x_lanes)
+    before = mlp_cuda.LAUNCHES["field_bwd"]
+    got = mlp_cuda.field_trunk_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert mlp_cuda.LAUNCHES["field_bwd"] == before + 1
+    want = mlp_cuda.field_trunk_bwd_plain(*bargs)
+    assert got[0].shape == (n, 3 * sources)
+    lanes = sources * x_lanes
+    named = zip(("dxsrc", "d_emb", "dW", "dbias"), got, want)
+    for name, a, b in list(named) + ([("dtrow", got[1][lanes : lanes + 30], want[1][lanes : lanes + 30])] if mode == "deform" else []):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        mx, nm = _rel(a, b)
+        assert mx <= 1e-2 and nm <= 1e-3, (name, mx, nm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["control", "deform"])
+def test_cuda_field_kernels_write_every_output(cuda_device, mode):
+    """Every output row is written whatever the freshly allocated buffers
+    held (the caching allocator hands the freed NaN block to the wrappers):
+    at 130 rows, the forward's h and saved tensors and the backward's
+    dxsrc; at no rows, the saved tensors' padded rows and exact-zero weight
+    gradients."""
+    for n in (130, 0):
+        args = _field_inputs(cuda_device, n, 23, mode)
+        poison = torch.full((8, 1 << 20), float("nan"), device=cuda_device)
+        del poison
+        h, (emb, acts) = mlp_cuda.field_trunk_fwd(*args, True)
+        assert h.shape == (n, 256) and torch.isfinite(h).all()
+        assert torch.isfinite(emb).all() and torch.isfinite(acts).all()
+        dh = torch.ones(n, 256, device=cuda_device)
+        poison = torch.full((8, 1 << 20), float("nan"), device=cuda_device)
+        del poison
+        got = mlp_cuda.field_trunk_bwd(args[0], dh, args[2], emb, acts, args[4], args[5])
+        torch.cuda.synchronize()
+        assert got[0].shape == (n, 3 * args[4]) and all(torch.isfinite(g).all() for g in got)
+        if n == 0:
+            for g in got[1:]:
+                assert torch.equal(g, torch.zeros_like(g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["control", "deform"])
+def test_cuda_field_trunk_gradients_match_cpu(cuda_device, mode):
+    """`field_trunk` under autograd on the card (both kernels) against the
+    CPU (both plain versions): every gradient, the time row's and the
+    positions' included, normwise within 3e-2."""
+    grads = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        xsrc, t_row, wpack, bias, sources, _ = _field_inputs(dev, 700, 29, mode)
+        in_ch = 63 * sources + t_row.shape[0]
+        ws = [w.float().requires_grad_(True) for w in mlp_cuda.unpack_trunk(wpack.float(), in_ch)]
+        bs = [b.clone().requires_grad_(True) for b in bias]
+        x = xsrc[:, :3].clone().requires_grad_(True)
+        value = xsrc[:, 3:].clone() if mode == "control" else None
+        t_row = t_row.requires_grad_(True) if mode == "deform" else None
+        h = mlp_cuda.field_trunk(x, value, t_row, ws, bs)
+        loss = (h * torch.linspace(-1, 1, 256, device=dev)).sum() + (h ** 2).sum() * 1e-2
+        leaves = [x] + ([t_row] if t_row is not None else []) + ws + bs
+        grads[dev.type] = [p.cpu() for p in torch.autograd.grad(loss, leaves)]
     for i, (a, b) in enumerate(zip(grads["cuda"], grads["cpu"])):
         _, nm = _rel(a, b)
         assert nm <= 3e-2, (i, nm)

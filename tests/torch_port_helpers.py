@@ -33,6 +33,32 @@ def clustered_scene_2d(n=90, width=48, height=32, seed=0, n_clusters=3, channels
     return f(means2d), f(conics), f(colors), f(opacities), f(depths), radii
 
 
+def flax_linear_vars(rng, shapes, scales=None):
+    """Flax `TorchLinear_i` variables ({"params": {"TorchLinear_i": {"kernel"
+    (in, out), "bias" (out,)}}}) for the (in, out) `shapes`, in the torch
+    default init U(+-1/sqrt(in)) drawn with numpy (a flax init jit-compiles
+    for seconds), each layer times `scales[i]`."""
+    layers = {}
+    for i, (fan_in, fan_out) in enumerate(shapes):
+        bound = 1.0 / np.sqrt(fan_in) * (1.0 if scales is None else scales[i])
+        layers[f"TorchLinear_{i}"] = {
+            "kernel": rng.uniform(-bound, bound, size=(fan_in, fan_out)).astype(np.float32),
+            "bias": rng.uniform(-bound, bound, size=fan_out).astype(np.float32),
+        }
+    return {"params": layers}
+
+
+def field_shapes(kind, depth=8, width=256):
+    """(in, out) of each TorchLinear of a flax field, in creation order:
+    "control" (ControlField) or "deform" (DeformField, blender timenet)."""
+    in_ch = 126 if kind == "control" else 63 + 30
+    trunk = [(in_ch, width)] + [(width + in_ch if i == depth // 2 else width, width) for i in range(depth - 1)]
+    head_in = width + in_ch if depth // 2 == depth - 1 else width  # the skip feeds the heads
+    if kind == "control":
+        return trunk + [(head_in, 3), (head_in, 4), (head_in, 3)]
+    return [(13, 256), (256, 30)] + trunk + [(head_in, 3), (head_in, 3), (head_in, 4), (head_in, 3)]
+
+
 def random_quats(rng, n):
     u, v, w = rng.uniform(size=(3, n))
     return np.stack(
