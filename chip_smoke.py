@@ -4,10 +4,11 @@
 
 Drives the port's stage-1 serving path (reference checkpoint ->
 `forward(train=False)` -> HTTP viewer), its stage-1 training step
-(`make_train_step`: forward, loss, backward, Adam, densification), and its
+(`make_train_step`: forward, loss, backward, Adam, densification), its
 stage-2 control path in the `deform_impl="pallas"` configuration (the
-slider viewer over a stage-2 checkpoint, and `make_control_train_step`)
-with every kernel built from this checkout. Phases, printed as each ends:
+slider viewer over a stage-2 checkpoint, and `make_control_train_step`),
+and the `train` and `train-control` CLI verbs over a dataset on disk, with
+every kernel built from this checkout. Phases, printed as each ends:
 
   1. device   the card's name and power limit, as nvidia-smi gives them
   2. build    nvcc builds every kernel source, one process per source, all
@@ -18,8 +19,9 @@ with every kernel built from this checkout. Phases, printed as each ends:
               written as a reference checkpoint and loaded back
   4. kernels  each kernel against its plain PyTorch version on the inputs
               the main paths give it (640x480; tiles 16 and 32): the
-              compositor at C = 3 and 4, its backward at C = 3 and 5 with
-              seeded cotangents, the fused deform field's forward (100k
+              compositor at C = 3 and 4, its backward by both walks at C
+              = 3 and 5 with seeded cotangents (the forward walk also on a
+              sparse frame, every tenth Gaussian), the fused deform field's forward (100k
               means, the scene's weights and time row) and its backward
               with a seeded cotangent: max |diff|, elements outside the
               budget, kernel and plain ms (CUDA events), and the least time
@@ -68,6 +70,26 @@ with every kernel built from this checkout. Phases, printed as each ends:
               cases, on the field-trunk kernels; the stage-1 checks'
               budgets, and on the kernels a looser one for the control
               field's tensors
+ 13. dataset  a synthetic 640x480 dataset in parse_synthetic's layout: 8
+              frames rendered from the bench scene at their frame times,
+              seeded depth, interflow and mask npys
+ 14. train    the `train` verb in process (`cli.main`) on
+     verb     configs/sim/base.yaml with overrides (warm-up 0, no
+              downscale, refine every 10 steps from step 10): 30 steps from
+              1e5 random Gaussians, one eval of every frame, one save; the
+              loss of every step is finite, metrics.jsonl is written, the
+              checkpoint reloads equal; step ms and steps/s against phase
+              7's bare step; launches of the compositor pair and the deform
+              kernels
+ 15. train-   the `train-control` verb over that checkpoint with a seeded
+     control  mask and deform_impl "pallas": 10 steps, field-trunk launches
+ 16. fwd walk 3 more steps of the train verb's trainer with
+              `rasterize_cuda.BWD_WALK = "fwd"`: the forward-walk backward
+              launches, the reverse walk does not (phase 4 holds that
+              kernel against its plain version and row 2's kernel)
+ 17. trunk    the deform field with per-point times at N = 1e5 (its trunk
+              on the precomputed embedding) forward and backward, launches;
+              the kernel pair against its plain versions, ms, bound
 
 Then one JSON line of kernel records and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -532,7 +554,9 @@ def phase_kernels(model) -> dict:
     bwd_rows = _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16)
     return {
         "rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "bwd_rows": bwd_rows, "bwd_max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+        "bwd_rows": bwd_rows,
+        "bwd_max_abs_err": max(r["max_abs_err"] for r in bwd_rows if r["walk"] == "rev"),
+        "bwd_fwd_max_abs_err": max(r["max_abs_err"] for r in bwd_rows if r["walk"] == "fwd"),
         "deform": _check_deform(*field_args[0]),
     }
 
@@ -595,58 +619,96 @@ def _check_deform(x, t_row, ws, bs, head_w, head_b) -> dict:
 
 
 def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16):
-    """The backward kernel against its plain version (autograd through the
-    plain compositor) on the serving scene's pixel-stage inputs: C = 3 (RGB)
-    and C = 5 (RGB + a seeded 2-channel screen motion, the training path's
-    layout), seeded N(0, 1) cotangents, tiles 16 and 32."""
+    """The backward kernels against their plain version (autograd through
+    the plain compositor, the same function for both walks) on the serving
+    scene's pixel-stage inputs: C = 3 (RGB) and C = 5 (RGB + a seeded
+    2-channel screen motion, the training path's layout), seeded N(0, 1)
+    cotangents, tiles 16 and 32. The reverse walk (row 2) is held to the
+    JAX package's gradient budget. The forward walk (row 3) is held to the
+    same budget against the plain version and against row 2's kernel, on
+    this dense frame (where its suffix identity cancels most) and on a
+    sparse frame (every tenth Gaussian), with its largest relative error
+    reported; its rows
+    that are exactly zero (slots past every pixel's termination) must be
+    row 2's, which reads the forward's own live counts."""
     import torch
 
     from freegaussian_tpu_torch.ops.rasterize_cuda import (
         rasterize_tiles,
         rasterize_tiles_bwd,
+        rasterize_tiles_bwd_fwd,
         rasterize_tiles_bwd_plain,
     )
     from freegaussian_tpu_torch.ops.tiles import build_intersections
+
+    def budget(got, want):
+        diff = (got - want).abs()
+        outside = int((diff > BWD_ATOL + BWD_RTOL * want.abs()).sum())
+        above = want.abs() > 1e-3
+        rel = float((diff / want.abs().clamp(min=1e-6))[above].max()) if bool(above.any()) else 0.0
+        return diff, outside, rel
 
     n = m2d.shape[0]
     g = torch.Generator(device="cpu").manual_seed(SEED + 7)
     flow = (torch.randn(n, 2, generator=g) * 2.0).to(m2d.device)
     rows = []
-    for tile in (16, 32):
-        isect = build_intersections(m2d, radii, depths, width, height, tile)
-        for C in (3, 5):
-            col = torch.cat([chans[:, :3], flow], dim=1)[:, :C].contiguous()
-            fwd_args = (m2d, con, col, opac, radii, isect.gauss_ids, isect.tile_offsets)
-            _, _, livecnt, t_final = rasterize_tiles(*fwd_args, width, height, tile)
-            g_color = torch.randn(height, width, C, generator=g).to(m2d.device)
-            g_alpha = torch.randn(height, width, generator=g).to(m2d.device)
-            kargs = (*fwd_args, livecnt, t_final, g_color, g_alpha, width, height, tile)
-            pargs = (*fwd_args, g_color, g_alpha, width, height, tile)
-            got = rasterize_tiles_bwd(*kargs)
-            torch.cuda.synchronize()
-            want = rasterize_tiles_bwd_plain(*pargs)
-            torch.cuda.synchronize()
-            diff = (got - want).abs()
-            outside = int((diff > BWD_ATOL + BWD_RTOL * want.abs()).sum())
-            rel = float((diff / want.abs().clamp(min=1e-6))[want.abs() > 1e-3].max())
-            k_ms = cuda_ms(lambda: rasterize_tiles_bwd(*kargs), reps=25)
-            # the plain backward is autograd over a Python loop (seconds a call): two runs, no warm-up
-            p_ms = cuda_ms(lambda: rasterize_tiles_bwd_plain(*pargs), reps=2, warmup=0)
-            bound_ms, bound_by = backward_bound(n, C, isect.num_isects, isect.num_tiles, width * height, pairs16)
-            row = dict(
-                tile=tile, C=C, num_isects=isect.num_isects, elements=got.numel(), max_abs_err=float(diff.max()),
-                max_rel_err_where_above_1e3=rel, outside_budget=outside, zero_rows=int((got == 0).all(1).sum()),
-                ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
-            )
-            print("kernel rasterize_bwd " + json.dumps(row))
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"backward kernel at tile {tile}, C={C}: non-finite rows")
-            if outside > BWD_MAX_OUTSIDE * got.numel():
-                raise AssertionError(
-                    f"backward kernel vs plain at tile {tile}, C={C}: {outside} of {got.numel()} elements "
-                    f"outside rtol {BWD_RTOL} / atol {BWD_ATOL}"
-                )
-            rows.append(row)
+    frames = [("bench", torch.arange(n, device=m2d.device), (16, 32), (3, 5))]
+    frames.append(("sparse", torch.arange(0, n, 10, device=m2d.device), (16, 32), (5,)))
+    for frame, keep, tiles, channels in frames:
+        fm2d, fcon, fchans, fopac, fdepths, fradii, fflow = (a[keep].contiguous() for a in (m2d, con, chans, opac, depths, radii, flow))
+        for tile in tiles:
+            isect = build_intersections(fm2d, fradii, fdepths, width, height, tile)
+            for C in channels:
+                col = torch.cat([fchans[:, :3], fflow], dim=1)[:, :C].contiguous()
+                fwd_args = (fm2d, fcon, col, fopac, fradii, isect.gauss_ids, isect.tile_offsets)
+                color, alpha, livecnt, t_final = rasterize_tiles(*fwd_args, width, height, tile)
+                g_color = torch.randn(height, width, C, generator=g).to(m2d.device)
+                g_alpha = torch.randn(height, width, generator=g).to(m2d.device)
+                r_total = ((color * g_color).sum(-1) + alpha * g_alpha).contiguous()
+                kargs = (*fwd_args, livecnt, t_final, g_color, g_alpha, width, height, tile)
+                fargs = (*fwd_args, livecnt, r_total, g_color, g_alpha, width, height, tile)
+                pargs = (*fwd_args, g_color, g_alpha, width, height, tile)
+                got = rasterize_tiles_bwd(*kargs)
+                got_f = rasterize_tiles_bwd_fwd(*fargs)
+                torch.cuda.synchronize()
+                want = rasterize_tiles_bwd_plain(*pargs)
+                torch.cuda.synchronize()
+                # the plain backward is autograd over a Python loop (seconds a call): two runs, no warm-up
+                p_ms = cuda_ms(lambda: rasterize_tiles_bwd_plain(*pargs), reps=2, warmup=0) if frame == "bench" else None
+                bound_ms, bound_by = backward_bound(fm2d.shape[0], C, isect.num_isects, isect.num_tiles, width * height, pairs16) if frame == "bench" else (None, None)
+                for walk, rows_k, args, fn in (("rev", got, kargs, rasterize_tiles_bwd), ("fwd", got_f, fargs, rasterize_tiles_bwd_fwd)):
+                    if frame == "sparse" and walk == "rev":
+                        continue
+                    diff, outside, rel = budget(rows_k, want)
+                    row = dict(
+                        frame=frame, walk=walk, tile=tile, C=C, num_isects=isect.num_isects, elements=rows_k.numel(),
+                        max_abs_err=float(diff.max()), max_rel_err_where_above_1e3=rel, outside_budget=outside,
+                        outside_share=outside / max(rows_k.numel(), 1), zero_rows=int((rows_k == 0).all(1).sum()),
+                        ms=cuda_ms(lambda: fn(*args), reps=25), plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    )
+                    if walk == "fwd":
+                        row["max_abs_diff_to_rev_kernel"] = float((rows_k - got).abs().max())
+                        row["outside_budget_to_rev_kernel"] = budget(rows_k, got)[1]
+                        row["zero_rows_differ_from_rev_kernel"] = int(((rows_k == 0).all(1) != (got == 0).all(1)).sum())
+                    name = "rasterize_bwd" if walk == "rev" else "rasterize_bwd_fwd"
+                    print(f"kernel {name} " + json.dumps(row))
+                    if not torch.isfinite(rows_k).all():
+                        raise AssertionError(f"{name} at tile {tile}, C={C} ({frame}): non-finite rows")
+                    held = [("plain", outside)]
+                    if walk == "fwd":
+                        held.append(("row 2's kernel", row["outside_budget_to_rev_kernel"]))
+                        if row["zero_rows_differ_from_rev_kernel"]:
+                            raise AssertionError(
+                                f"{name} at tile {tile}, C={C} ({frame}): {row['zero_rows_differ_from_rev_kernel']} rows "
+                                "are zero in one walk and not in the other (the forward walk's liveness replay)"
+                            )
+                    for against, out in held:
+                        if out > BWD_MAX_OUTSIDE * rows_k.numel():
+                            raise AssertionError(
+                                f"{name} vs {against} at tile {tile}, C={C} ({frame}): {out} of {rows_k.numel()} "
+                                f"elements outside rtol {BWD_RTOL} / atol {BWD_ATOL}"
+                            )
+                    rows.append(row)
     return rows
 
 
@@ -1251,6 +1313,314 @@ def phase_check2(model2):
         raise AssertionError("stage-2 GPU vs CPU: " + "; ".join(faults))
 
 
+# ---------------------------------------------------------------------------
+# slice 4: the train and train-control verbs
+# ---------------------------------------------------------------------------
+
+DATA_FRAMES = 8
+VERB_STEPS = 30
+VERB_EVAL_AT = 20  # the step of the train verb's one eval of every frame
+CONTROL_VERB_STEPS = 10
+FWD_WALK_STEPS = 3
+# padded capacity of the verbs' states: the trainer inits min(num_random,
+# capacity / 2) Gaussians, so 2^18 holds N = 1e5 (the JAX package's default is 2^19)
+VERB_CAPACITY = 1 << 18
+
+
+def phase_dataset(tmp: Path, model) -> Path:
+    """A synthetic dataset at 640x480 in parse_synthetic's layout
+    (transforms.json, images/, depth/, interflow_n2/, mask/): DATA_FRAMES
+    frames rendered by the port from the bench scene at their frame times
+    (i / 7) from an orbit at radius 6 (focal 500), seeded depth (U(3, 8)),
+    interflow (N(0, 1) px) and (H, W, 3) attribute masks (seeded boxes).
+    `parse_synthetic` reads no seed points: the train verb starts from
+    `num_random` random Gaussians."""
+    import math
+
+    from freegaussian_tpu_torch.viewer.png import encode_png
+    from freegaussian_tpu_torch.viewer.server import orbit_camera, to_rgb8
+
+    t0 = time.perf_counter()
+    width, height = SERVE_WH
+    root = tmp / "scene_data"
+    for sub in ("images", "depth", "interflow_n2", "mask"):
+        (root / sub).mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 41)
+    frames = []
+    for i in range(DATA_FRAMES):
+        cam = orbit_camera(-0.6 + 1.2 * i / (DATA_FRAMES - 1), 0.15, 6.0, width=width, height=height, fx=500.0,
+                           time=i / (DATA_FRAMES - 1), device=DEVICE)
+        (root / f"images/frame_{i:04d}.png").write_bytes(encode_png(to_rgb8(model(cam)["rgb"])))
+        np.save(root / f"depth/frame_{i:04d}.npy", rng.uniform(3.0, 8.0, size=(height, width, 1)).astype(np.float32))
+        np.save(root / f"interflow_n2/frame_{i:04d}.npy", rng.normal(size=(height, width, 2)).astype(np.float32))
+        mask = np.zeros((height, width, 3), bool)
+        for c in range(3):
+            y, x = rng.integers(0, height // 2), rng.integers(0, width // 2)
+            mask[y : y + height // 3, x : x + width // 3, c] = True
+        np.save(root / f"mask/{i:04d}.npy", mask)
+        c2w = np.eye(4)
+        c2w[:3] = cam.c2w.cpu().numpy()
+        frames.append({"file_path": f"./images/frame_{i:04d}", "transform_matrix": c2w.tolist()})
+    meta = {"camera_angle_x": 2.0 * math.atan(0.5 * width / 500.0), "frames": frames}
+    (root / "transforms.json").write_text(json.dumps(meta))
+    mib = sum(f.stat().st_size for f in root.rglob("*") if f.is_file()) / 2**20
+    print(f"dataset: {DATA_FRAMES} frames at {width}x{height} in parse_synthetic's layout, {mib:.1f} MiB, "
+          f"written in {time.perf_counter() - t0:.1f} s")
+    return root
+
+
+def _verb_metrics(out: Path):
+    rows = [json.loads(line) for line in (out / "freegaussian" / "metrics.jsonl").read_text().splitlines()]
+    return [r for r in rows if "loss" in r], [r for r in rows if "eval" in r]
+
+
+def phase_train_verb(tmp: Path, data: Path) -> dict:
+    """The `train` verb in process, `cli.main(["train", ...])`, on
+    configs/sim/base.yaml (flow losses, tensorboard) with overrides: warm-up
+    0, no downscale, refine_start / refine_every 10, VERB_STEPS steps, one
+    eval of every frame at step VERB_EVAL_AT, N = 1e5 random Gaussians in a padded
+    capacity of 2^18, tile 32, the deform field on its kernel pair (the
+    port's default "fused"); the checkpoint it saves at the end reloads
+    equal. Launches are zeroed just before the verb and read just after."""
+    import torch
+
+    from freegaussian_tpu_torch import cli
+    from freegaussian_tpu_torch.engine import checkpoints
+
+    out = tmp / "train_out"
+    over = tmp / "train_over.yaml"
+    over.write_text(
+        f"max_num_iterations: {VERB_STEPS}\nnum_random: {N_GAUSS}\nsteps_per_log: 1\nsteps_per_save: 0\n"
+        f"steps_per_eval_image: 0\nsteps_per_eval_all_images: {VERB_EVAL_AT}\noutput_dir: {out}\n"
+        "pipeline:\n  model:\n    warm_up: 0\n    num_downscales: 0\n    refine_start: 10\n    refine_every: 10\n"
+    )
+    argv = ["train", "--data", str(data), "--config", str(HERE / "configs/sim/base.yaml"), "--scene-config", str(over),
+            "--capacity", str(VERB_CAPACITY), "--device", DEVICE]
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    train_rows, eval_rows = _verb_metrics(out)
+    losses = [r["loss"] for r in train_rows]
+    if len(train_rows) != VERB_STEPS or not all(np.isfinite(v) for v in losses):
+        raise AssertionError(f"train verb: {len(train_rows)} logged steps, losses {losses}")
+    step_ms = [1e3 / r["steps_per_sec"] for r in train_rows]
+    # the first epoch loads each frame to the device; the step after the eval is billed from the eval's end
+    steady = statistics.median(step_ms[DATA_FRAMES:])
+    print(f"train verb: {VERB_STEPS} steps in {wall:.1f} s (setup, steps, eval, save); loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}; gaussians {int(train_rows[0]['gaussian_count'])} -> {int(train_rows[-1]['gaussian_count'])}; "
+          f"step ms first {step_ms[0]:.1f}, median over the first epoch {statistics.median(step_ms[:DATA_FRAMES]):.2f}, "
+          f"median after it {steady:.2f} ({1e3 / steady:.2f} steps/s, {SERVE_WH[0] * SERVE_WH[1] / (steady / 1e3):.0f} px/s)")
+    print(f"train verb eval: {json.dumps(eval_rows)}")
+    print(f"train verb launches: {json.dumps(counts)}")
+    for name in ("rasterize_fwd", "rasterize_bwd", "deform_fwd", "deform_bwd"):
+        if not counts[name] > 0:
+            raise AssertionError(f"train verb launched {name} {counts[name]} times")
+    if counts["rasterize_bwd_fwd"] != 0 or len(eval_rows) != VERB_STEPS // VERB_EVAL_AT:
+        raise AssertionError(f"train verb: launches {counts}, eval rows {eval_rows}")
+    # the checkpoint the verb saved at its last step reloads equal
+    ckpt = out / "freegaussian" / "checkpoints"
+    saved = checkpoints.state_dict(trainer.state)
+    with torch.no_grad():
+        trainer.state.params["means"].add_(1.0)
+    trainer.load(ckpt)
+    reloaded = checkpoints.state_dict(trainer.state)
+    _assert_nested_equal(saved, reloaded, "checkpoint")
+    print(f"train verb checkpoint: step {reloaded['step']}, {sum(f.stat().st_size for f in ckpt.rglob('*') if f.is_file()) / 2**20:.1f} MiB, reloads equal")
+    return {"trainer": trainer, "ckpt": ckpt, "launches": counts, "median_step_ms": steady, "losses": losses}
+
+
+def _assert_nested_equal(a, b, path):
+    import torch
+
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"{path}: keys differ")
+        for k in a:
+            _assert_nested_equal(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, torch.Tensor):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{path} differs")
+    elif a != b:
+        raise AssertionError(f"{path}: {a} != {b}")
+
+
+def phase_train_control_verb(tmp: Path, data: Path, ckpt: Path, trainer) -> dict:
+    """The `train-control` verb in process over the train verb's checkpoint,
+    on configs/control/sim/base.yaml with deform_impl "pallas" (the field
+    trunk kernels), a seeded cluster mask over the checkpoint's live
+    Gaussians (three spatial balls), CONTROL_VERB_STEPS steps. Launches
+    are zeroed just before the verb and read just after."""
+    import torch
+
+    from freegaussian_tpu_torch import cli
+    from freegaussian_tpu_torch.preprocess.clustering import save_gaussian_mask
+
+    alive = trainer.state.alive
+    mask = synthetic_mask(trainer.state.params["means"].detach()[alive].cpu().numpy())
+    full = torch.zeros((alive.shape[0], mask.shape[1]), dtype=torch.bool)
+    full[alive.cpu()] = torch.from_numpy(mask)
+    mask_path = tmp / f"gaussian_mask_{mask.shape[0]}x{mask.shape[1]}.npy"
+    save_gaussian_mask(mask_path, full, alive.cpu())
+    out = tmp / "control_out"
+    over = tmp / "control_over.yaml"
+    over.write_text(f"max_num_iterations: {CONTROL_VERB_STEPS}\nnum_random: {N_GAUSS}\nsteps_per_log: 1\noutput_dir: {out}\n")
+    argv = ["train-control", "--data", str(data), "--config", str(HERE / "configs/control/sim/base.yaml"),
+            "--scene-config", str(over), "--stage1-checkpoint", str(ckpt), "--gaussian-mask", str(mask_path),
+            "--deform-impl", STAGE2_IMPL, "--capacity", str(VERB_CAPACITY), "--device", DEVICE]
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    ctrainer = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    rows, _ = _verb_metrics(out)
+    losses = [r["loss"] for r in rows]
+    if len(rows) != CONTROL_VERB_STEPS or not all(np.isfinite(v) for v in losses):
+        raise AssertionError(f"train-control verb: {len(rows)} logged steps, losses {losses}")
+    assert ctrainer.state.control.impl == STAGE2_IMPL and ctrainer.state.deform.impl == STAGE2_IMPL
+    step_ms = [1e3 / r["steps_per_sec"] for r in rows]
+    print(f"train-control verb: {CONTROL_VERB_STEPS} steps in {wall:.1f} s; mask {mask.shape} over "
+          f"{mask.any(1).mean():.1%} of the live Gaussians; loss {losses[0]:.6f} -> {losses[-1]:.6f}; step ms first "
+          f"{step_ms[0]:.1f}, median after the first epoch {statistics.median(step_ms[DATA_FRAMES:]):.2f}; "
+          f"launches {json.dumps(counts)}")
+    for name in ("field_fwd", "field_bwd", "rasterize_fwd", "rasterize_bwd"):
+        if not counts[name] > 0:
+            raise AssertionError(f"train-control verb launched {name} {counts[name]} times")
+    return {"launches": counts, "median_step_ms": statistics.median(step_ms[DATA_FRAMES:])}
+
+
+def phase_fwd_walk(trainer) -> dict:
+    """FWD_WALK_STEPS more steps of the train verb's trainer with
+    `rasterize_cuda.BWD_WALK = "fwd"` (the JAX package's knob): the
+    compositor's backward is the forward walk, row 3, and not row 2."""
+    import torch
+
+    from freegaussian_tpu_torch.ops import rasterize_cuda
+
+    torch.cuda.synchronize()
+    zero_launches()
+    rasterize_cuda.BWD_WALK = "fwd"
+    try:
+        t0 = time.perf_counter()
+        metrics = trainer.train(FWD_WALK_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        rasterize_cuda.BWD_WALK = "rev"
+    counts = launches()
+    print(f"fwd walk: {FWD_WALK_STEPS} train steps in {wall:.2f} s under BWD_WALK \"fwd\", loss {metrics['loss']:.6f}; "
+          f"launches {json.dumps(counts)}")
+    if not np.isfinite(metrics["loss"]) or counts["rasterize_bwd_fwd"] != FWD_WALK_STEPS or counts["rasterize_bwd"] != 0:
+        raise AssertionError(f"fwd walk: loss {metrics['loss']}, launches {counts}")
+    return {"launches": counts}
+
+
+def phase_trunk(model) -> dict:
+    """The deform field with per-point times at N = 1e5 (its trunk on the
+    precomputed embedding, rows 4-5), forward and backward through autograd
+    with the launch counts zeroed just before and read just after; then
+    each kernel against its plain version on the captured inputs."""
+    import copy
+
+    import torch
+
+    from freegaussian_tpu_torch.ops import mlp_cuda as mc
+
+    deform = copy.deepcopy(model.deform).requires_grad_(True)
+    x = model.params["means"].detach().clone()
+    g = torch.Generator(device="cpu").manual_seed(SEED + 23)
+    t = torch.rand(x.shape[0], 1, generator=g).to(x.device)
+    real, calls = mc.trunk_fwd, []
+
+    def capture(*args):
+        calls.append(args)
+        return real(*args)
+
+    torch.cuda.synchronize()
+    zero_launches()
+    mc.trunk_fwd = capture
+    try:
+        d_xyz, rot, scl = deform(x, t)
+        loss = d_xyz.w.sum() + (d_xyz.v ** 2).sum() + d_xyz.theta.sum() + rot.sum() + (scl ** 2).sum()
+        loss.backward()
+        torch.cuda.synchronize()
+    finally:
+        mc.trunk_fwd = real
+    counts = launches()
+    print(f"trunk: DeformField with per-point times, N = {x.shape[0]}, forward and backward; launches {json.dumps(counts)}")
+    if counts["trunk_fwd"] != 1 or counts["trunk_bwd"] != 1 or counts["deform_fwd"] or counts["field_fwd"]:
+        raise AssertionError(f"per-point times launched {counts}")
+    if not all(torch.isfinite(p.grad).all() for p in deform.parameters()):
+        raise AssertionError("per-point deform field: non-finite gradients")
+
+    inp, wpack, bias, _ = calls[0]
+    n = inp.shape[0]
+    with torch.no_grad():
+        h, (emb, acts) = mc.trunk_fwd(inp, wpack, bias, True)
+        torch.cuda.synchronize()
+        hp, (embp, actsp) = mc.trunk_fwd_plain(inp, wpack, bias, True)
+        mx, nm = _rel_errs(h.float(), hp.float())
+        diff = (h.float() - hp.float()).abs()
+        in_ch = 63 + 30
+        fwd = dict(
+            n=n, h_max_rel=mx, h_norm_rel=nm, max_abs_err=float(diff.max()),
+            outside_budget=float((diff > DEFORM_OUT_MAX_REL * hp.float().abs().max()).float().mean()),
+            emb_mismatch=int((emb != embp).sum()), act_mismatch=int((acts[:, :n] != actsp[:, :n]).sum()),
+            ms=cuda_ms(lambda: mc.trunk_fwd(inp, wpack, bias, True), reps=25),
+            serve_ms=cuda_ms(lambda: mc.trunk_fwd(inp, wpack, bias, False), reps=25),
+            plain_ms=cuda_ms(lambda: mc.trunk_fwd_plain(inp, wpack, bias, True), reps=5),
+        )
+        fwd["bound_ms"], fwd["bound_by"] = trunk_bound(n, in_ch, True, False)
+        fwd["serve_bound_ms"], fwd["serve_bound_by"] = trunk_bound(n, in_ch, False, False)
+        print("kernel trunk_fwd " + json.dumps(fwd))
+        if not (torch.isfinite(h).all() and mx <= DEFORM_OUT_MAX_REL and nm <= DEFORM_OUT_NORM_REL and fwd["emb_mismatch"] == 0):
+            raise AssertionError(f"trunk_fwd vs plain: max rel {mx}, norm rel {nm}, emb mismatches {fwd['emb_mismatch']}")
+
+        dh = torch.randn(n, 256, generator=g).bfloat16().float().to(x.device)
+        got = mc.trunk_bwd(dh, wpack, emb, acts)
+        torch.cuda.synchronize()
+        want = mc.trunk_bwd_plain(dh, wpack, emb, acts)
+        named = [("d_emb", got[0], want[0]), ("dW", got[1], want[1]), ("dbias", got[2], want[2])]
+        errs = {name: _rel_errs(a, b) for name, a, b in named}
+        bwd = dict(
+            n=n, errs=errs, max_abs_err=max(float((a - b).abs().max()) for _, a, b in named),
+            d_emb_nonzero_past_fan_in=int((got[0][:, in_ch:] != 0).sum()),
+            ms=cuda_ms(lambda: mc.trunk_bwd(dh, wpack, emb, acts), reps=25),
+            plain_ms=cuda_ms(lambda: mc.trunk_bwd_plain(dh, wpack, emb, acts), reps=5),
+        )
+        bwd["bound_ms"], bwd["bound_by"] = trunk_bound(n, in_ch, True, True)
+        print("kernel trunk_bwd " + json.dumps(bwd))
+        for name, (emx, enm) in errs.items():
+            if not (emx <= DEFORM_GRAD_MAX_REL and enm <= DEFORM_GRAD_NORM_REL):
+                raise AssertionError(f"trunk_bwd vs plain, {name}: max rel {emx}, norm rel {enm}")
+        if bwd["d_emb_nonzero_past_fan_in"] or not all(torch.isfinite(a).all() for a in got):
+            raise AssertionError(f"trunk_bwd: {bwd['d_emb_nonzero_past_fan_in']} non-zero lanes past the fan-in, or non-finite")
+    return {"launches": counts, "fwd": fwd, "bwd": bwd}
+
+
+def trunk_bound(n: int, in_ch: int, save: bool, backward: bool):
+    """Least time (ms) the card could take for one call of the trunk on a
+    precomputed embedding, and what sets it: `field_bound`'s operations
+    (the trunk's products, twice backward) against its bytes with the
+    (N, 128) f32 embedding read (forward) or d emb written (backward) in
+    place of the sources and dx."""
+    trunk = 2.0 * n * 256 * (2 * in_ch + 7 * 256) * (2 if backward else 1)
+    t_ops = trunk / PEAK_BF16_OPS * 1e3
+    if backward:
+        io = 4 * 256 + 4 * 128  # dh in, d emb out
+    else:
+        io = 4 * 128 + (0 if save else 2 * 256)  # the embedding in, h out (in training the last saved activation)
+    per_row = io + (2 * (128 + 8 * 256) if (save or backward) else 0)
+    weights = 256 * (2 * in_ch + 7 * 256) * (2 + (4 if backward else 0))
+    t_bytes = (n * per_row + weights) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def main():
     preflight()
     import torch
@@ -1270,67 +1640,51 @@ def main():
         serve2 = phase_serve2(model2)
         train2 = phase_train2(model2)
         phase_check2(model2)
+        data = phase_dataset(Path(tmp), model)
+        verb = phase_train_verb(Path(tmp), data)
+        control_verb = phase_train_control_verb(Path(tmp), data, verb["ckpt"], verb["trainer"])
+        fwd_walk = phase_fwd_walk(verb["trainer"])
+        trunk = phase_trunk(model)
+        del verb["trainer"]
+    print(
+        f"train verb median step {verb['median_step_ms']:.2f} ms against phase 7's bare step "
+        f"{train['median_step_ms']:.2f} ms in this run ({verb['median_step_ms'] / train['median_step_ms']:.2f}x); "
+        f"train-control verb {control_verb['median_step_ms']:.2f} ms against phase 11's {train2['median_step_ms']:.2f} ms"
+    )
     main_row = next(r for r in kern["rows"] if r["tile"] == model.cfg.tile_size and r["C"] == 4)
-    bwd_row = next(r for r in kern["bwd_rows"] if r["tile"] == train["tile"] and r["C"] == 5)
-    record = {
-        "name": "rasterize_fwd",
-        "route": "cuda",
-        "source": "freegaussian_tpu_torch/csrc/rasterize_fwd.cu",
-        "replaces": "freegaussian_tpu/ops/rasterize_pallas.py:523",
-        "launches": serve["main"]["launches"]["rasterize_fwd"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": None,
-    }
-    bwd_record = {
-        "name": "rasterize_bwd",
-        "route": "cuda",
-        "source": "freegaussian_tpu_torch/csrc/rasterize_bwd.cu",
-        "replaces": "freegaussian_tpu/ops/rasterize_pallas.py:857",
-        "launches": train["launches"]["rasterize_bwd"],
-        "max_abs_err": kern["bwd_max_abs_err"],
-        "ms": bwd_row["ms"],
-        "plain_ms": bwd_row["plain_ms"],
-        "bound_ms": bwd_row["bound_ms"],
-        "bound_by": bwd_row["bound_by"],
-        "library_ms": None,
-    }
-    records = [record, bwd_record]
+    bwd_row = next(r for r in kern["bwd_rows"] if r["frame"] == "bench" and r["walk"] == "rev" and r["tile"] == train["tile"] and r["C"] == 5)
+    bwd_fwd_row = next(r for r in kern["bwd_rows"] if r["frame"] == "bench" and r["walk"] == "fwd" and r["tile"] == train["tile"] and r["C"] == 5)
+
+    def record(name, source, replaces, launches_, max_abs_err, row):
+        return {
+            "name": name, "route": "cuda", "source": f"freegaussian_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches_, "max_abs_err": max_abs_err, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+        }
+
+    records = [
+        record("rasterize_fwd", "rasterize_fwd.cu", "freegaussian_tpu/ops/rasterize_pallas.py:523",
+               serve["main"]["launches"]["rasterize_fwd"], kern["max_abs_err"], main_row),
+        record("rasterize_bwd", "rasterize_bwd.cu", "freegaussian_tpu/ops/rasterize_pallas.py:857",
+               train["launches"]["rasterize_bwd"], kern["bwd_max_abs_err"], bwd_row),
+        record("rasterize_bwd_fwd", "rasterize_bwd.cu", "freegaussian_tpu/ops/rasterize_pallas.py:627",
+               fwd_walk["launches"]["rasterize_bwd_fwd"], kern["bwd_fwd_max_abs_err"], bwd_fwd_row),
+    ]
     for name, line, mode in (("deform_fwd", 537, "fwd"), ("deform_bwd", 555, "bwd")):
         row = kern["deform"][mode]
-        records.append({
-            "name": name,
-            "route": "cuda",
-            "source": "freegaussian_tpu_torch/csrc/deform_field.cu",
-            "replaces": f"freegaussian_tpu/ops/mlp_pallas.py:{line}",
-            "launches": train["launches"][name],
-            "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"],
-            "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
-            "library_ms": None,
-        })
+        records.append(record(name, "deform_field.cu", f"freegaussian_tpu/ops/mlp_pallas.py:{line}",
+                              train["launches"][name], row["max_abs_err"], row))
     # the control trunk's rows (the stage-2 path's training call); launches
     # of both stage-2 paths: 3 forwards a step and 1 a request, 1 backward a step
     for name, line, mode in (("field_fwd", 476, "fwd"), ("field_bwd", 484, "bwd")):
-        row = kern2["control"][mode]
-        records.append({
-            "name": name,
-            "route": "cuda",
-            "source": "freegaussian_tpu_torch/csrc/deform_field.cu",
-            "replaces": f"freegaussian_tpu/ops/mlp_pallas.py:{line}",
-            "launches": train2["launches"][name] + serve2["launches"][name],
-            "max_abs_err": max(kern2[m][mode]["max_abs_err"] for m in ("control", "deform")),
-            "ms": row["ms"],
-            "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
-            "library_ms": None,
-        })
+        records.append(record(
+            name, "deform_field.cu", f"freegaussian_tpu/ops/mlp_pallas.py:{line}",
+            train2["launches"][name] + serve2["launches"][name],
+            max(kern2[m][mode]["max_abs_err"] for m in ("control", "deform")), kern2["control"][mode],
+        ))
+    for name, line, mode in (("trunk_fwd", 155, "fwd"), ("trunk_bwd", 167, "bwd")):
+        records.append(record(name, "deform_field.cu", f"freegaussian_tpu/ops/mlp_pallas.py:{line}",
+                              trunk["launches"][name], trunk[mode]["max_abs_err"], trunk[mode]))
     assert [r["name"] for r in records] == list(launches())
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))

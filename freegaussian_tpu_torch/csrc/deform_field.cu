@@ -13,6 +13,13 @@
 //   _fused_field_heads_bwd (body _field_bwd_kernel_heads) -> field_bwd, HEADS
 //   _fused_field_fwd       (body _field_fwd_kernel)       -> field_fwd, !HEADS
 //   _fused_field_bwd       (body _field_bwd_kernel)       -> field_bwd, !HEADS
+//   _pallas_fwd            (body _fwd_kernel)             -> field_fwd, !HEADS, S = 0
+//   _fused_trunk_bwd       (body _bwd_kernel)             -> field_bwd, !HEADS, S = 0
+// The last two take the embedding precomputed (S = 0: no sources, no time
+// row): x is the (N, 128) f32 input [x_emb | t_emb | 0] of
+// mlp_pallas.fused_trunk, rounded to bf16 lane by lane where the others
+// compute their lanes, and the backward stops at d emb (N, 128) f32, written
+// where the others write dx (the caller's autograd chains it further).
 // and computes what they compute, per row of S sources x (N, 3 S) with one
 // shared time row:
 //   emb  = [x_0, sin(2^0 x_0), cos(2^0 x_0), ..., cos(2^(L-1) x_0) | x_1 ... |
@@ -174,7 +181,8 @@ __device__ __forceinline__ void copy_rows(bf16* smem, int lds, bf16* gmem, int l
     }
 }
 
-// The block's source rows (ROWS x 3 S f32) into shared memory, zeros past n.
+// The block's source rows (ROWS x 3 S f32) into shared memory, zeros past n
+// (nothing for S = 0).
 __device__ __forceinline__ void load_sources(float* s_x, const float* x, int row0, int n, int src, int tid) {
     const int xw = 3 * src;
     for (int i = tid; i < ROWS * xw; i += THREADS) s_x[i] = row0 + i / xw < n ? x[(size_t)row0 * xw + i] : 0.0f;
@@ -227,7 +235,9 @@ field_fwd_kernel(const float* __restrict__ x,      // (N, 3 S)
     __syncthreads();
     for (int i = tid; i < ROWS * EMB; i += THREADS) {
         const int r = i / EMB, l = i - r * EMB;
-        s_emb[r * LDE + l] = __float2bfloat16_rn(embed_lane(s_x + 3 * src * r, l, src, xl, trow, tl));
+        const float v = src > 0 ? embed_lane(s_x + 3 * src * r, l, src, xl, trow, tl)
+                                : (row0 + r < n ? x[(size_t)row0 * EMB + i] : 0.0f);  // S = 0: the given lanes
+        s_emb[r * LDE + l] = __float2bfloat16_rn(v);
     }
     __syncthreads();
     if (emb_out) copy_rows<false>(s_emb, LDE, emb_out + (size_t)row0 * EMB, EMB, EMB, tid);
@@ -290,8 +300,8 @@ field_dgrad_kernel(const float* __restrict__ x, int n, int src, int xl,
                    float* __restrict__ dbias,        // (8, 256), accumulated
                    float* __restrict__ dhw,          // (13, 256), accumulated (HEADS)
                    float* __restrict__ dhb,          // (13,), accumulated (HEADS)
-                   float* __restrict__ demb_sum,     // (128,), accumulated
-                   float* __restrict__ dx) {         // (N, 3 S)
+                   float* __restrict__ demb_sum,     // (128,), accumulated; not touched for S = 0
+                   float* __restrict__ dx) {         // (N, 3 S), or d emb (N, 128) for S = 0
     extern __shared__ __align__(128) unsigned char smem[];
     float* s_x = (float*)smem;
     float* s_dy = (float*)(smem + XBYTES);
@@ -410,6 +420,13 @@ field_dgrad_kernel(const float* __restrict__ x, int n, int src, int xl,
             wmma::store_matrix_sync(s_demb + r * 16 * LDS + warp * 16, acc[r][0], LDS, wmma::mem_row_major);
     }
     __syncthreads();
+    if (src == 0) {  // d emb itself: every lane of every row below n
+        for (int i = tid; i < ROWS * EMB; i += THREADS) {
+            const int r = i / EMB, l = i - r * EMB;
+            if (row0 + r < n) dx[(size_t)row0 * EMB + i] = s_demb[r * LDS + l];
+        }
+        return;
+    }
     if (tid < EMB) {
         float s = 0.0f;
         for (int r = 0; r < ROWS; ++r) s += s_demb[r * LDS + tid];
@@ -492,6 +509,7 @@ field_wgrad_kernel(const bf16* __restrict__ emb,   // (N_pad, 128)
 }
 
 bool valid_lanes(int src, int xl, int tl) {
+    if (src == 0) return xl == 0 && tl == 0;  // the embedding is given
     return src >= 1 && src <= MAX_SRC && xl >= 3 && xl % 3 == 0 && (xl / 3) % 2 == 1 && tl >= 0 &&
            src * xl + tl <= EMB;
 }
@@ -524,26 +542,30 @@ extern "C" long field_packed_size() { return layer_off(DEPTH); }
 
 // heads != 0: out is y (N, 13) f32 and hw / hb the packed heads; heads == 0:
 // out is h (N, 256) bf16 and hw / hb are not read; with acts_out, h is its
-// last layer and out is not written (it may be null).
+// last layer and out is not written (it may be null). src == 0 (with xl ==
+// tl == 0, heads == 0): x is the (N, 128) f32 embedding.
 extern "C" int field_fwd(int heads, const void* x, int n, int src, int xl, const void* trow, int tl,
                          const void* wpack, const void* bias, const void* hw, const void* hb, void* out,
                          void* emb_out, void* acts_out, int n_pad, void* stream) {
     // no early exit at n == 0: the padded rows (n_pad >= 64) still run, so
     // the saved tensors are written whatever n is
-    if (!valid_lanes(src, xl, tl) || n_pad % ROWS != 0 || n_pad < n || n_pad == 0) return (int)cudaErrorInvalidValue;
+    if (!valid_lanes(src, xl, tl) || (heads && src == 0) || n_pad % ROWS != 0 || n_pad < n || n_pad == 0)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     return (int)(heads ? launch_fwd<true>(x, n, src, xl, trow, tl, wpack, bias, hw, hb, out, emb_out, acts_out, n_pad, s)
                        : launch_fwd<false>(x, n, src, xl, trow, tl, wpack, bias, hw, hb, out, emb_out, acts_out, n_pad, s));
 }
 
 // heads != 0: dout is dy (N, 13) and hw, dhw, dhb are the heads'; heads ==
-// 0: dout is dh (N, 256) and those three are not touched.
+// 0: dout is dh (N, 256) and those three are not touched. src == 0 (xl == 0,
+// heads == 0): dx receives d emb (N, 128) and demb_sum is not touched.
 extern "C" int field_bwd(int heads, const void* x, int n, int src, int xl, const void* dout, const void* wpack,
                          const void* hw, const void* emb, const void* acts, int n_pad, int splits, void* G,
                          void* dbias, void* dhw, void* dhb, void* demb_sum, void* dx, void* partial, void* stream) {
     // no early exit at n == 0: every split of the weight-gradient partials
     // is written (zeros then), since the wrapper sums them
-    if (!valid_lanes(src, xl, 0) || n_pad % ROWS != 0 || n_pad < n || n_pad == 0 || splits < 1)
+    if (!valid_lanes(src, xl, 0) || (heads && src == 0) || n_pad % ROWS != 0 || n_pad < n || n_pad == 0 ||
+        splits < 1)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err = heads ? launch_dgrad<true>(x, n, src, xl, dout, wpack, hw, acts, n_pad, G, dbias, dhw, dhb,

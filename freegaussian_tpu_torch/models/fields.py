@@ -30,6 +30,9 @@ numerics of `mlp_pallas.py`):
             bf16, with the timenet output as the shared time row) and of
             `control_apply_fused(impl="pallas")` (control: the embeddings of
             the position and of the per-point control value).
+With per-point times (t of shape (N, 1)) both deform modes build the
+embeddings here and run the trunk alone on them (`fused_trunk`), the heads
+in f32 outside, as `deform_apply_fused` does under either impl.
 The timenet and the screw-axis normalization stay here in every mode.
 """
 
@@ -43,7 +46,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.math import positional_embed, safe_norm
-from ..ops.mlp_cuda import deform_field, field_trunk
+from ..ops.mlp_cuda import deform_field, field_trunk, fused_trunk
 
 HEAD_NAMES = ("branch_w", "branch_v", "gaussian_rotation", "gaussian_scaling")
 CONTROL_HEAD_NAMES = ("d_xyz", "d_rot", "d_scale")
@@ -154,6 +157,18 @@ class DeformField(nn.Module):
         self.gaussian_rotation = _new_linear(head_in, 4)
         self.gaussian_scaling = _new_linear(head_in, 3)
 
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator, head_init_scale: float = 1.0) -> "DeformField":
+        """torch nn.Linear's default init, U(+-1/sqrt(fan_in)) for weights and
+        biases, drawn from `generator` (on the CPU) in state_dict order; the
+        four heads' weights and biases times `head_init_scale`, as the JAX
+        package's `DeformField.head_init_scale` initializes them."""
+        heads = {getattr(self, n) for n in HEAD_NAMES}
+        for layer in self.modules():
+            if isinstance(layer, nn.Linear):
+                _torch_default_init(layer, generator, head_init_scale if layer in heads else 1.0)
+        return self
+
     def forward(self, x: torch.Tensor, t: torch.Tensor):
         """x: (N, 3) canonical means; t: (1, 1) shared frame time or (N, 1).
 
@@ -168,10 +183,11 @@ class DeformField(nn.Module):
         heads = [getattr(self, n) for n in HEAD_NAMES]
         w_all = torch.cat([hd.weight for hd in heads], dim=0)
         b_all = torch.cat([hd.bias for hd in heads], dim=0)
-        if self.impl != "split" and t_emb.shape[0] != 1:
-            raise ValueError("the fused deform field takes one shared frame time")
         ws, bs = [l.weight for l in self.linear], [l.bias for l in self.linear]
-        if self.impl == "fused":
+        if self.impl != "split" and t_emb.shape[0] != 1:
+            h = fused_trunk(positional_embed(x.float(), self.multires), t_emb, ws, bs)
+            y = _linear(h, w_all, b_all, torch.float32)
+        elif self.impl == "fused":
             y = deform_field(x, t_emb[0], ws, bs, w_all, b_all)
         elif self.impl == "pallas":
             y = _linear(field_trunk(x, None, t_emb[0], ws, bs), w_all, b_all, torch.float32)
@@ -202,6 +218,12 @@ class DeformField(nn.Module):
             h = [h]
         h = [a.float() for a in h]
         return _linear(h, w_all, b_all, torch.float32)
+
+
+def _torch_default_init(layer: nn.Linear, generator: torch.Generator, scale: float = 1.0):
+    bound = 1.0 / math.sqrt(layer.weight.shape[1])
+    for p in (layer.weight, layer.bias):
+        p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound * scale)
 
 
 def _no_tf32(x: torch.Tensor):
@@ -242,9 +264,7 @@ class ControlField(nn.Module):
         """torch nn.Linear's default init, U(+-1/sqrt(fan_in)) for weights and
         biases, drawn from `generator` (on the CPU) in state_dict order."""
         for layer in [*self.linear, *(getattr(self, n) for n in CONTROL_HEAD_NAMES)]:
-            bound = 1.0 / math.sqrt(layer.weight.shape[1])
-            for p in (layer.weight, layer.bias):
-                p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
+            _torch_default_init(layer, generator)
         return self
 
     def forward(self, x: torch.Tensor, value: torch.Tensor):

@@ -7,8 +7,8 @@ under DDP `module.` prefixes). The port's `SplatModel` and `ControlModel`
 use the same key names, so loading is a prefix strip, a reshape of
 features_rest to its flat layout and a `load_state_dict`. A stage-2 model
 also needs its cluster mask (`gaussian_mask_NxM.npy`): `load_control_checkpoint`
-serves a stage-2 checkpoint, `cross_load_stage1` starts stage 2 from a
-stage-1 one with a fresh control field.
+serves a stage-2 checkpoint (`engine/checkpoints.py:cross_load_stage1`
+starts stage-2 training from a stage-1 one).
 
 `state_from_jax_arrays` builds a `SplatModel` from the JAX package's numpy
 arrays (padded params, alive mask and flax DeformField variables, whose
@@ -172,30 +172,8 @@ def load_control_checkpoint(
 
     def control_state(model_state, model):
         if not any(k.startswith("control.") for k in model_state):
-            raise KeyError(f"{path} has no control.* keys: a stage-1 checkpoint starts stage 2 with cross_load_stage1")
+            raise KeyError(f"{path} has no control.* keys: a stage-1 checkpoint starts stage 2 with engine.checkpoints.cross_load_stage1")
         return {k: model_state[f"control.{k}"] for k in model.control.state_dict()}
-
-    return _control_model(path, gaussian_mask_path, capacity, cfg, device, control_state)
-
-
-def cross_load_stage1(
-    path: Path,
-    gaussian_mask_path: Path,
-    *,
-    generator: torch.Generator,
-    capacity: Optional[int] = None,
-    cfg: Optional[SplatConfig] = None,
-    device="cuda",
-):
-    """Start stage 2 from a reference checkpoint (twin of the JAX package's
-    `engine/checkpoints.py:cross_load_stage1`): the Gaussians, alive mask
-    and deform field come from the checkpoint; the control field gets a
-    fresh torch-default init drawn from `generator` (a CPU generator); any
-    `control.*` keys in the checkpoint are not read."""
-
-    def control_state(model_state, model):
-        fresh = make_control_field(model.cfg).reset_parameters(generator)
-        return fresh.state_dict()
 
     return _control_model(path, gaussian_mask_path, capacity, cfg, device, control_state)
 

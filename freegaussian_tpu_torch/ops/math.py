@@ -1,5 +1,6 @@
 """Core math ops: quaternions, positional embedding, viewmat convention,
-bilinear interpolation, SH DC conversion and learning-rate schedules.
+bilinear interpolation, the integer-factor image downsample, SH DC
+conversion and learning-rate schedules.
 
 Torch twins of `freegaussian_tpu/ops/math.py` (same formulas, same band and
 axis orders) for the functions the serving and training paths need. Every
@@ -88,6 +89,17 @@ def random_quat(n: int, generator: torch.Generator | None = None, device=None) -
 def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
     """RGB in [0, 1] -> 0th SH coefficient."""
     return (rgb - 0.5) / _SH_C0
+
+
+def resize_image(image: torch.Tensor, d: int) -> torch.Tensor:
+    """Area-downsample an (H, W, C) image by an integer factor d: the mean of
+    each d x d block (opencv INTER_AREA for integer factors), rows and
+    columns past the last whole block dropped."""
+    if d == 1:
+        return image
+    h, w, c = image.shape
+    image = image.float()
+    return image[: (h // d) * d, : (w // d) * d].reshape(h // d, d, w // d, d, c).mean(dim=(1, 3))
 
 
 def bilinear_interp(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """The field MLPs: CUDA kernel wrappers and their plain PyTorch versions.
 
-Two differentiable functions share one kernel pair (`csrc/deform_field.cu`):
+Three differentiable functions share one kernel pair (`csrc/deform_field.cu`):
 
 - `deform_field(x, t_row, ws, bs, head_w, head_b)` runs the whole deform
   field (the NeRF embedding of x, the 8x256 bf16 ReLU trunk with its skip,
@@ -15,6 +15,12 @@ Two differentiable functions share one kernel pair (`csrc/deform_field.cu`):
   `mlp_pallas.py:_fused_field_fwd` / `_fused_field_bwd`, which
   `fused_deform_trunk` and `fused_control_trunk` reach. Its forward is
   `field_trunk_fwd`, its backward `field_trunk_bwd`.
+- `fused_trunk(x_emb, t_emb, ws, bs)` runs the trunk alone on a precomputed
+  embedding [x_emb | t_emb | 0] (128 f32 lanes, rounded to bf16 in the
+  kernel), the port of `mlp_pallas.py:fused_trunk` (TPU kernels
+  `_pallas_fwd` / `_fused_trunk_bwd`), which the deform field reaches for
+  per-point times. Its forward is `trunk_fwd`, its backward `trunk_bwd`,
+  which stops at d emb (N, 128): autograd carries it into x_emb and t_emb.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain version, which computes the same function with the same
@@ -51,7 +57,7 @@ WGRAD_SPLITS = 8
 
 # Kernel launches by kernel name. Each wrapper adds one where it launches its
 # kernel and nowhere else; `chip_smoke.py` zeroes and reads it.
-LAUNCHES = {"deform_fwd": 0, "deform_bwd": 0, "field_fwd": 0, "field_bwd": 0}
+LAUNCHES = {"deform_fwd": 0, "deform_bwd": 0, "field_fwd": 0, "field_bwd": 0, "trunk_fwd": 0, "trunk_bwd": 0}
 # The CUDA sources (csrc/<name>.cu) this module launches.
 KERNEL_SOURCES = ("deform_field",)
 
@@ -195,9 +201,10 @@ def _launch_fwd(heads, x, t_row, wpack, bias, head_w, head_b, sources, x_lanes, 
 def _launch_bwd(heads, x, dout, wpack, head_w, emb, acts, sources, x_lanes):
     """One `field_bwd` launch (data-gradient walk, then weight-gradient
     tiles). Returns (dx, d emb row sum, packed dW, d bias, d head_w, d head_b),
-    the last two None without heads."""
-    dev = x.device
-    n = x.shape[0]
+    the last two None without heads; without sources (x None) dx is d emb
+    (N, 128)."""
+    dev = dout.device
+    n = dout.shape[0]
     n_pad = _padded_rows(n)
     f32 = dict(dtype=torch.float32, device=dev)
     G = torch.empty((DEPTH, n_pad, H), dtype=torch.bfloat16, device=dev)
@@ -205,12 +212,12 @@ def _launch_bwd(heads, x, dout, wpack, head_w, emb, acts, sources, x_lanes):
     dhw = torch.zeros((NOUT, H), **f32) if heads else None
     dhb = torch.zeros((NOUT,), **f32) if heads else None
     demb = torch.zeros((EMB,), **f32)
-    dx = torch.empty((n, 3 * sources), **f32)
+    dx = torch.empty((n, 3 * sources if sources else EMB), **f32)  # d emb itself without sources
     splits = max(1, min(WGRAD_SPLITS, n_pad // ROWS))
     partial = torch.empty((splits, OFFSETS[-1]), **f32)
     fn, err = _kernel("field_bwd")
     rc = fn(
-        int(heads), x.data_ptr(), n, sources, x_lanes, dout.data_ptr(), wpack.data_ptr(),
+        int(heads), x.data_ptr() if x is not None else None, n, sources, x_lanes, dout.data_ptr(), wpack.data_ptr(),
         head_w.data_ptr() if heads else None, emb.data_ptr(), acts.data_ptr(), n_pad, splits, G.data_ptr(),
         dbias.data_ptr(), dhw.data_ptr() if heads else None, dhb.data_ptr() if heads else None, demb.data_ptr(),
         dx.data_ptr(), partial.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
@@ -555,3 +562,124 @@ def field_trunk(
     save = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
     h = _FieldTrunkFn.apply(save, len(srcs), xsrc, t_row.float().contiguous(), *ws, *bs)
     return h.float()
+
+
+# ---------------------------------------------------------------------------
+# the trunk on a precomputed embedding (per-point times)
+# ---------------------------------------------------------------------------
+
+
+def trunk_fwd(
+    inp: torch.Tensor,  # (N, 128) f32 embedding [x_emb | t_emb | 0]
+    wpack: torch.Tensor,  # packed trunk weights, bf16
+    bias: torch.Tensor,  # (8, 256) f32
+    save: bool,
+):
+    """Returns h (N, 256) bf16, the trunk's last activation, and with `save`
+    the backward's inputs: the bf16 embedding (N_pad, 128) and activations
+    (8, N_pad, 256), rows padded to a multiple of 64 (zero embedding rows).
+    With `save`, h is a view of the last activation, written once."""
+    n = inp.shape[0]
+    dev = inp.device
+    for name, t, dt, shape in (
+        ("inp", inp, torch.float32, (n, EMB)),
+        ("wpack", wpack, torch.bfloat16, (OFFSETS[-1],)),
+        ("bias", bias, torch.float32, (DEPTH, H)),
+    ):
+        _check(name, t, dt, dev, shape)
+    if _device_kind(dev) == "cpu":
+        return trunk_fwd_plain(inp, wpack, bias, save)
+    h = None if save else torch.empty((n, H), dtype=torch.bfloat16, device=dev)
+    no_row = inp.new_zeros((0,))
+    saved = _launch_fwd(False, inp, no_row, wpack, bias, None, None, 0, 0, h, save)
+    LAUNCHES["trunk_fwd"] += 1
+    return (saved[1][-1, :n] if save else h), saved
+
+
+def trunk_fwd_plain(inp, wpack, bias, save: bool):
+    """Plain PyTorch version of `trunk_fwd` (same inputs, same outputs)."""
+    n = inp.shape[0]
+    emb = torch.zeros((_padded_rows(n), EMB), dtype=torch.float32, device=inp.device)
+    emb[:n] = inp
+    emb = emb.to(torch.bfloat16)
+    acts = torch.stack(_trunk_fwd_plain(emb, wpack, bias)).to(torch.bfloat16)
+    return (acts[-1, :n], (emb, acts)) if save else (acts[-1, :n].clone(), None)
+
+
+def trunk_bwd(
+    dh: torch.Tensor,  # (N, 256) f32
+    wpack: torch.Tensor,
+    emb: torch.Tensor,  # (N_pad, 128) bf16, from the forward
+    acts: torch.Tensor,  # (8, N_pad, 256) bf16, from the forward
+):
+    """Returns (d emb (N, 128) f32, the packed trunk weight gradient (f32),
+    d bias (8, 256)). Lanes the weights do not read get exact zeros."""
+    n = dh.shape[0]
+    n_pad = _padded_rows(n)
+    dev = dh.device
+    for name, t, dt, shape in (
+        ("dh", dh, torch.float32, (n, H)),
+        ("wpack", wpack, torch.bfloat16, (OFFSETS[-1],)),
+        ("emb", emb, torch.bfloat16, (n_pad, EMB)),
+        ("acts", acts, torch.bfloat16, (DEPTH, n_pad, H)),
+    ):
+        _check(name, t, dt, dev, shape)
+    if _device_kind(dev) == "cpu":
+        return trunk_bwd_plain(dh, wpack, emb, acts)
+    d_emb, _, dpack, dbias, _, _ = _launch_bwd(False, None, dh, wpack, None, emb, acts, 0, 0)
+    LAUNCHES["trunk_bwd"] += 1
+    return d_emb, dpack, dbias
+
+
+def trunk_bwd_plain(dh, wpack, emb, acts):
+    """Plain PyTorch version of `trunk_bwd` (same inputs, same outputs)."""
+    n = dh.shape[0]
+    a = [acts[i, :n].float() for i in range(DEPTH)]
+    g = dh * (a[DEPTH - 1] > 0)
+    return _trunk_bwd_plain(g, wpack, a, emb[:n].float())
+
+
+class _TrunkFn(torch.autograd.Function):
+    """Forward `trunk_fwd`, backward `trunk_bwd`. The output is the bf16
+    activation, so autograd hands the backward a bf16 cotangent, as the JAX
+    package's cast of the trunk output to f32 does."""
+
+    @staticmethod
+    def forward(ctx, save, inp, *trunk):
+        ws, bs = trunk[:DEPTH], trunk[DEPTH:]
+        in_ch = ws[0].shape[1]
+        wpack = pack_trunk(ws, in_ch)
+        bias = torch.stack([b.float() for b in bs]).contiguous()
+        h, saved = trunk_fwd(inp, wpack, bias, save)
+        if save:
+            ctx.save_for_backward(wpack, *saved)
+            ctx.in_ch = in_ch
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        wpack, emb, acts = ctx.saved_tensors
+        d_emb, dpack, dbias = trunk_bwd(dh.float().contiguous(), wpack, emb, acts)
+        return None, d_emb, *unpack_trunk(dpack, ctx.in_ch), *dbias.unbind(0)
+
+
+def fused_trunk(x_emb: torch.Tensor, t_emb: torch.Tensor, ws, bs) -> torch.Tensor:
+    """The 8x256 trunk on (x_emb (N, E1), t_emb (N, E2) or (1, E2),
+    broadcast), the port of `mlp_pallas.py:fused_trunk`: ws / bs the eight
+    trunk layers (torch layout (256, fan_in): layer 0's fan_in E1 + E2, layer
+    5's E1 + E2 + 256), E1 + E2 <= 128. Returns the last activation (N, 256),
+    f32 holding bf16 values; differentiable in x_emb, t_emb (a broadcast
+    t_emb's gradient is the sum over the rows), ws and bs."""
+    _check_trunk(ws, bs)
+    n, e1 = x_emb.shape
+    e2 = t_emb.shape[-1]
+    if e1 + e2 > EMB:
+        raise ValueError(f"trunk input width {e1 + e2} exceeds {EMB}")
+    if ws[0].shape != (H, e1 + e2) or ws[SKIP_IN].shape != (H, e1 + e2 + H):
+        raise ValueError("trunk weight shapes do not match the embeddings")
+    inp = torch.cat(
+        [x_emb.float(), t_emb.float().expand(n, e2), x_emb.new_zeros((n, EMB - e1 - e2), dtype=torch.float32)],
+        dim=1,
+    ).contiguous()
+    save = torch.is_grad_enabled() and any(t.requires_grad for t in (x_emb, t_emb, *ws, *bs))
+    return _TrunkFn.apply(save, inp, *ws, *bs).float()

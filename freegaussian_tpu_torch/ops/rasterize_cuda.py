@@ -14,6 +14,10 @@ d means2d|, d colors). On a CUDA tensor it launches `csrc/rasterize_bwd.cu`
 (the port of `rasterize_pallas.py:_bwd_kernel_rev`) or raises; on a CPU
 tensor it runs `rasterize_tiles_bwd_plain`, autograd through the plain
 forward with respect to the gathered per-intersection rows.
+`rasterize_tiles_bwd_fwd` computes the same rows by the forward walk (the
+port of `rasterize_pallas.py:_bwd_kernel`, kernel `rasterize_bwd_fwd` of
+`csrc/rasterize_bwd.cu`) from the per-pixel totals r_total; `BWD_WALK`
+picks the walk, as the module knob of the same name does in the JAX package.
 `reduce_rows_by_gid` sums the rows per Gaussian (the twin of
 `rasterize_pallas.py:_reduce_rows_by_gid`).
 
@@ -44,28 +48,35 @@ GRAD_ROW_HEAD = 8
 
 # Kernel launches by kernel name. Each wrapper adds one where it launches its
 # kernel and nowhere else; `chip_smoke.py` zeroes and reads it.
-LAUNCHES = {"rasterize_fwd": 0, "rasterize_bwd": 0}
+LAUNCHES = {"rasterize_fwd": 0, "rasterize_bwd": 0, "rasterize_bwd_fwd": 0}
 # The CUDA sources (csrc/<name>.cu) this module launches.
 KERNEL_SOURCES = ("rasterize_fwd", "rasterize_bwd")
 
-# ctypes argument layout of each kernel's C entry point
-_ARGTYPES = {
-    "rasterize_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5,
-    "rasterize_bwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2,
+# The backward's walk order, the twin of `rasterize_pallas.BWD_WALK`: "rev"
+# (the reverse walk from t_final) or "fwd" (the forward walk with the suffix
+# identity, whose subtraction cancels where the suffix is small).
+BWD_WALK = "rev"
+
+# (source, ctypes argument layout) of each kernel's C entry point
+_ENTRIES = {
+    "rasterize_fwd": ("rasterize_fwd", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5),
+    "rasterize_bwd": ("rasterize_bwd", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2),
+    "rasterize_bwd_fwd": ("rasterize_bwd", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2),
 }
 _fns: dict = {}
 
 
 def _kernel(name: str):
-    """(entry point, error-string function) of `csrc/<name>.cu`, built at first use."""
+    """(entry point, error-string function) of the kernel `name`, its source built at first use."""
     if name not in _fns:
         from ..cuda_build import load
 
-        lib = load(name)
+        source, argtypes = _ENTRIES[name]
+        lib = load(source)
         fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES[name]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        err = getattr(lib, f"{name}_error_string")
+        err = getattr(lib, f"{source}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         _fns[name] = (fn, err)
@@ -163,37 +174,63 @@ def rasterize_tiles_bwd(
     c, d opacity, |d mx|, |d my|, d colors], where |.| is taken after the sum
     over the intersection's whole tile (one row is one (tile, Gaussian)
     pair). Every row is written: slots past every pixel's termination get
-    exact zeros."""
+    exact zeros. The reverse walk, from the forward's t_final."""
+    return _bwd("rasterize_bwd", means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets,
+                livecnt, t_final, g_color, g_alpha, width, height, tile_size)
+
+
+def rasterize_tiles_bwd_fwd(
+    means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets,
+    livecnt: torch.Tensor,  # (H, W) int32, from the forward
+    r_total: torch.Tensor,  # (H, W) f32: sum_c color g_color + alpha g_alpha
+    g_color: torch.Tensor,
+    g_alpha: torch.Tensor,
+    width: int,
+    height: int,
+    tile_size: int,
+) -> torch.Tensor:
+    """`rasterize_tiles_bwd`'s rows by the forward walk, which replays the
+    forward's transmittance and takes each suffix as r_total minus the
+    running sum (`r_total` from the forward's color and alpha images)."""
+    return _bwd("rasterize_bwd_fwd", means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets,
+                livecnt, r_total, g_color, g_alpha, width, height, tile_size)
+
+
+def _bwd(name, means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets, livecnt, pixel_in,
+         g_color, g_alpha, width, height, tile_size):
+    """Check the backward's inputs and launch kernel `name` (`pixel_in` is
+    t_final for the reverse walk, r_total for the forward walk); on CPU
+    tensors, run the plain version, the same function for both walks."""
     C, tiles_w, tiles_h = _check_inputs(
         means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets, width, height, tile_size
     )
     dev = means2d.device
-    for name, t, dt, shape in (
+    for arg, t, dt, shape in (
         ("livecnt", livecnt, torch.int32, (height, width)),
-        ("t_final", t_final, torch.float32, (height, width)),
+        ("t_final" if name == "rasterize_bwd" else "r_total", pixel_in, torch.float32, (height, width)),
         ("g_color", g_color, torch.float32, (height, width, C)),
         ("g_alpha", g_alpha, torch.float32, (height, width)),
     ):
-        _check(name, t, dt, dev, shape)
+        _check(arg, t, dt, dev, shape)
     if dev.type == "cpu":
         return rasterize_tiles_bwd_plain(
             means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets, g_color, g_alpha,
             width, height, tile_size,
         )
 
-    fn, err = _kernel("rasterize_bwd")
+    fn, err = _kernel(name)
     rows = torch.empty((gauss_ids.shape[0], GRAD_ROW_HEAD + C), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(
         means2d.data_ptr(), conics.data_ptr(), opacities.data_ptr(), colors.data_ptr(),
         radii.data_ptr(), gauss_ids.data_ptr(), tile_offsets.data_ptr(),
-        g_color.data_ptr(), g_alpha.data_ptr(), livecnt.data_ptr(), t_final.data_ptr(),
+        g_color.data_ptr(), g_alpha.data_ptr(), livecnt.data_ptr(), pixel_in.data_ptr(),
         C, width, height, tile_size, tiles_w, tiles_h, int(tile_size != CONTRACT_TILE),
         rows.data_ptr(), stream,
     )
     if rc != 0:
-        raise RuntimeError(f"rasterize_bwd launch failed: {err(rc).decode()} (cudaError {rc})")
-    LAUNCHES["rasterize_bwd"] += 1
+        raise RuntimeError(f"{name} launch failed: {err(rc).decode()} (cudaError {rc})")
+    LAUNCHES[name] += 1
     return rows
 
 
@@ -364,10 +401,12 @@ def reduce_rows_by_gid(
 
 class _PixelStage(torch.autograd.Function):
     """The compositor with its backward: forward `rasterize_tiles`, backward
-    `rasterize_tiles_bwd` then `reduce_rows_by_gid`. Differentiable inputs:
-    means2d, conics, colors (all C channels), opacities, and the absgrad
-    sink, whose gradient is the per-Gaussian sum over kernel tiles of
-    |sum over the tile of d means2d|. Radii and the binning are cuts."""
+    `rasterize_tiles_bwd` (or, with BWD_WALK "fwd", `rasterize_tiles_bwd_fwd`
+    from the forward's color and alpha) then `reduce_rows_by_gid`.
+    Differentiable inputs: means2d, conics, colors (all C channels),
+    opacities, and the absgrad sink, whose gradient is the per-Gaussian sum
+    over kernel tiles of |sum over the tile of d means2d|. Radii and the
+    binning are cuts."""
 
     @staticmethod
     def forward(ctx, means2d, conics, colors, opacities, sink, radii, isect, width, height, tile_size):
@@ -375,7 +414,11 @@ class _PixelStage(torch.autograd.Function):
             means2d, conics, colors, opacities, radii, isect.gauss_ids, isect.tile_offsets,
             width, height, tile_size,
         )
-        ctx.save_for_backward(means2d, conics, colors, opacities, radii, livecnt, t_final)
+        ctx.walk = BWD_WALK
+        if ctx.walk not in ("rev", "fwd"):
+            raise ValueError(f"BWD_WALK must be 'rev' or 'fwd', got {ctx.walk!r}")
+        pixel_saved = (t_final,) if ctx.walk == "rev" else (color, alpha)
+        ctx.save_for_backward(means2d, conics, colors, opacities, radii, livecnt, *pixel_saved)
         ctx.isect = isect
         ctx.size = (width, height, tile_size)
         ctx.has_sink = sink is not None
@@ -383,14 +426,19 @@ class _PixelStage(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_color, g_alpha):
-        means2d, conics, colors, opacities, radii, livecnt, t_final = ctx.saved_tensors
+        means2d, conics, colors, opacities, radii, livecnt, *pixel_saved = ctx.saved_tensors
         isect = ctx.isect
         width, height, tile_size = ctx.size
-        rows = rasterize_tiles_bwd(
-            means2d, conics, colors, opacities, radii, isect.gauss_ids, isect.tile_offsets,
-            livecnt, t_final, g_color.float().contiguous(), g_alpha.float().contiguous(),
-            width, height, tile_size,
-        )
+        g_color = g_color.float().contiguous()
+        g_alpha = g_alpha.float().contiguous()
+        args = (means2d, conics, colors, opacities, radii, isect.gauss_ids, isect.tile_offsets, livecnt)
+        if ctx.walk == "rev":
+            rows = rasterize_tiles_bwd(*args, pixel_saved[0], g_color, g_alpha, width, height, tile_size)
+        else:
+            color, alpha = pixel_saved
+            # the per-pixel total, outside the kernel as in the JAX package
+            r_total = ((color * g_color).sum(-1) + alpha * g_alpha).contiguous()
+            rows = rasterize_tiles_bwd_fwd(*args, r_total, g_color, g_alpha, width, height, tile_size)
         g = reduce_rows_by_gid(rows, isect.gauss_ids, isect.offsets, isect.counts)
         d_sink = g[:, 6:8] if ctx.has_sink else None
         return g[:, 0:2], g[:, 2:5], g[:, GRAD_ROW_HEAD:], g[:, 5], d_sink, None, None, None, None, None

@@ -216,8 +216,14 @@ def test_field_impls_follow_the_jax_dispatch():
         ControlField(depth=2, width=32, impl="pallas")
     with pytest.raises(ValueError, match="impl"):
         DeformField(impl="xla")
-    with pytest.raises(ValueError, match="one shared frame time"):
-        DeformField(compute_dtype=torch.bfloat16, impl="pallas")(torch.zeros(4, 3), torch.zeros(4, 1))
+    # per-point times run the trunk on the precomputed embedding (tests/test_torch_trunk.py)
+    field = DeformField(compute_dtype=torch.bfloat16, impl="pallas")
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in field.parameters():
+            p.copy_((torch.rand(p.shape, generator=gen) - 0.5) * 0.1)
+    d, r, s = field(torch.randn(4, 3, generator=gen), torch.rand(4, 1, generator=gen))
+    assert d.w.shape == (4, 3) and r.shape == (4, 4) and s.shape == (4, 3) and torch.isfinite(d.w).all()
 
 
 def test_control_field_reset_parameters_is_torch_default():

@@ -30,6 +30,9 @@ from freegaussian_tpu.models.fields import DeformField as JDeformField
 from freegaussian_tpu.models.splat_model import SplatConfig as JConfig
 from freegaussian_tpu.preprocess.clustering import save_gaussian_mask as j_save_mask
 from freegaussian_tpu_torch import cli
+from freegaussian_tpu_torch.engine.checkpoints import cross_load_stage1
+from freegaussian_tpu_torch.engine.optimizers import OptimizersConfig, make_optimizers
+from freegaussian_tpu_torch.engine.train_step import create_train_state
 from freegaussian_tpu_torch.models import torch_compat as t_compat
 from freegaussian_tpu_torch.models.control_model import (
     Controller,
@@ -197,23 +200,33 @@ def test_stage2_checkpoint_round_trip_matches_jax(tmp_path):
 
 
 def test_cross_load_stage1(tmp_path):
-    """A stage-1 checkpoint starts stage 2: Gaussians, alive and deform from
-    the checkpoint, a fresh torch-default control field from the generator;
-    serving that checkpoint as a stage-2 model is refused."""
+    """A stage-1 reference checkpoint starts stage 2
+    (`engine/checkpoints.py:cross_load_stage1`): Gaussians, alive and deform
+    from the checkpoint, its live rows first; the control field and the Adam
+    states keep their fresh initialization; serving that checkpoint as a
+    stage-2 model is refused."""
     params, alive, mask, _, cvars = stage2_scene(seed=4, n=60, capacity=64)
     path, mask_path, dvars8 = _write_stage2(tmp_path, params, alive, mask, cvars, step=0)
-    cfg = TConfig(deform_impl="headsfused")
-    model = t_compat.cross_load_stage1(path, mask_path, generator=torch.Generator().manual_seed(9), cfg=cfg, device="cpu")
-    n = int(alive.sum())
-    np.testing.assert_array_equal(model.params["means"][:n].numpy(), params["means"][alive])
-    np.testing.assert_array_equal(model.gaussian_mask[:n].numpy(), mask[alive])
+    cap, n = len(alive), int(alive.sum())
+    control = ControlField().reset_parameters(torch.Generator().manual_seed(9))
+    fresh = {k: v.clone() for k, v in control.state_dict().items()}
+    state = create_train_state(
+        {k: torch.zeros(v.shape) for k, v in params.items()}, torch.zeros(cap, dtype=torch.bool),
+        DeformField(), make_optimizers(OptimizersConfig()), generator=torch.Generator(), control=control,
+    )
+    cross_load_stage1(path, state)
+    assert int(state.alive.sum()) == n and bool(state.alive[:n].all())
+    for k, v in params.items():
+        np.testing.assert_array_equal(state.params[k][:n].detach().numpy(), v[alive])
+        assert not state.params[k][n:].any(), k
+    np.testing.assert_array_equal(load_gaussian_mask(mask_path, cap, state.alive)[:n].numpy(), mask[alive])
     for k, v in t_compat.deform_state_from_flax(dvars8).items():
-        assert torch.equal(model.deform.state_dict()[k], v), k
-    fresh = ControlField().reset_parameters(torch.Generator().manual_seed(9))
-    for k, v in fresh.state_dict().items():
-        assert torch.equal(model.control.state_dict()[k], v), k
+        assert torch.equal(state.deform.state_dict()[k], v), k
+    for k, v in fresh.items():
+        assert torch.equal(state.control.state_dict()[k], v), k
+    assert not any(mu.any() for s in state.opt_states.values() for mu in s.mu.values())
     with pytest.raises(KeyError, match="control"):
-        t_compat.load_control_checkpoint(path, mask_path, cfg=cfg, device="cpu")
+        t_compat.load_control_checkpoint(path, mask_path, cfg=TConfig(deform_impl="headsfused"), device="cpu")
 
 
 def test_mask_file_round_trip_with_dead_rows(tmp_path):

@@ -137,6 +137,7 @@ def test_fused_field_takes_only_its_shape():
         DeformField(compute_dtype=torch.float32, impl="fused")
     model = t_compat.SplatModel(TConfig(deform_bf16=False), 4, device="cpu")
     assert model.deform.impl == "split"  # an f32 field runs the split-linear chain
-    fused = t_compat.SplatModel(TConfig(), 4, device="cpu").deform
-    with pytest.raises(ValueError, match="one shared frame time"):
-        fused(torch.zeros(4, 3), torch.zeros(4, 1))
+    fused = t_compat.SplatModel(TConfig(), 4, device="cpu").deform.reset_parameters(torch.Generator().manual_seed(0))
+    # per-point times run the trunk on the precomputed embedding (tests/test_torch_trunk.py)
+    d, r, s = fused(torch.zeros(4, 3), torch.rand(4, 1, generator=torch.Generator().manual_seed(1)))
+    assert d.w.shape == (4, 3) and r.shape == (4, 4) and s.shape == (4, 3) and torch.isfinite(r).all()

@@ -18,7 +18,13 @@ max |diff| / max |plain| < 1e-2 and normwise < 5e-3 (bf16 activations round
 alike except where the f32 sums, taken in another order, straddle a bf16
 rounding boundary); the backward from the same saved activations, so with
 the same ReLU masks, max 1e-2 and normwise 1e-3. The field trunk: the same
-budgets on its bf16 output and its gradients.
+budgets on its bf16 output and its gradients, and the trunk on a
+precomputed embedding the same. The forward-walk backward is held to the
+backward's budget against the plain version and the reverse walk's kernel on
+sparse and dense scenes (its suffix identity r_total - S cancels where the
+suffix is small next to the pixel's total, which a dense scene reaches), and
+its exactly-zero rows (slots past every pixel's termination) must be the
+reverse walk's, which reads the forward's own live counts.
 """
 
 import numpy as np
@@ -30,6 +36,7 @@ from freegaussian_tpu_torch.ops.rasterize_cuda import (
     rasterize_pixels,
     rasterize_tiles,
     rasterize_tiles_bwd,
+    rasterize_tiles_bwd_fwd,
     rasterize_tiles_bwd_plain,
     rasterize_tiles_plain,
     reduce_rows_by_gid,
@@ -415,6 +422,145 @@ def test_cuda_field_trunk_gradients_match_cpu(cuda_device, mode):
         loss = (h * torch.linspace(-1, 1, 256, device=dev)).sum() + (h ** 2).sum() * 1e-2
         leaves = [x] + ([t_row] if t_row is not None else []) + ws + bs
         grads[dev.type] = [p.cpu() for p in torch.autograd.grad(loss, leaves)]
+    for i, (a, b) in enumerate(zip(grads["cuda"], grads["cpu"])):
+        _, nm = _rel(a, b)
+        assert nm <= 3e-2, (i, nm)
+
+
+def _r_total(color, alpha, g_color, g_alpha):
+    return ((color * g_color).sum(-1) + alpha * g_alpha).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("tile_size", [16, 32])
+@pytest.mark.parametrize("channels", [3, 5])
+def test_cuda_bwd_fwd_walk_matches_plain(cuda_device, channels, tile_size, dense):
+    """The forward walk on a sparse and a dense scene: every row within rtol
+    1e-3 / atol 1e-4 of the plain backward and of the reverse walk's kernel,
+    and zero exactly where the reverse walk's row is."""
+    args = _inputs(cuda_device, 600, 100, 70, channels, channels + 30, tile_size, dense=dense)
+    color, alpha, livecnt, t_final = rasterize_tiles(*args)
+    g_color, g_alpha = _cotangents(cuda_device, 100, 70, channels, channels + 1)
+    before = dict(rasterize_cuda.LAUNCHES)
+    got = rasterize_tiles_bwd_fwd(*args[:7], livecnt, _r_total(color, alpha, g_color, g_alpha), g_color, g_alpha, *args[7:])
+    torch.cuda.synchronize()
+    assert rasterize_cuda.LAUNCHES["rasterize_bwd_fwd"] == before["rasterize_bwd_fwd"] + 1
+    assert rasterize_cuda.LAUNCHES["rasterize_bwd"] == before["rasterize_bwd"]
+    want = rasterize_tiles_bwd_plain(*args[:7], g_color, g_alpha, *args[7:])
+    rev = rasterize_tiles_bwd(*args[:7], livecnt, t_final, g_color, g_alpha, *args[7:])
+    assert got.shape == want.shape == (args[5].shape[0], 8 + channels)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(got, rev, rtol=1e-3, atol=1e-4)
+    assert torch.equal((got == 0).all(1), (rev == 0).all(1))
+    assert (got[:, 6:8] >= 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_fwd_walk_writes_every_row(cuda_device):
+    """Rows past every pixel's termination are exact zeros whatever the
+    freshly allocated output held; the walk stops where the forward did:
+    its zero rows are the reverse walk's."""
+    args = _inputs(cuda_device, 400, 64, 48, 3, 21, 16)
+    color, alpha, livecnt, t_final = rasterize_tiles(*args)
+    g_color, g_alpha = _cotangents(cuda_device, 64, 48, 3, 1)
+    r_total = _r_total(color, alpha, g_color, g_alpha)
+    poison = torch.full((args[5].shape[0], 11), float("nan"), device=cuda_device)
+    del poison  # the caching allocator hands this block to the kernel's output
+    rows = rasterize_tiles_bwd_fwd(*args[:7], livecnt, r_total, g_color, g_alpha, *args[7:])
+    torch.cuda.synchronize()
+    assert torch.isfinite(rows).all()
+    assert (rows == 0).all(dim=1).any()
+    rev = rasterize_tiles_bwd(*args[:7], livecnt, t_final, g_color, g_alpha, *args[7:])
+    assert torch.equal((rows == 0).all(1), (rev == 0).all(1))
+
+
+def _trunk_inputs(device, n, seed, in_ch=93):
+    rng = np.random.default_rng(seed)
+    fan_in = [in_ch] + [256] * 7
+    fan_in[5] = in_ch + 256
+    ws = [torch.tensor(rng.normal(size=(256, f)) / np.sqrt(f), dtype=torch.float32) for f in fan_in]
+    inp = np.zeros((n, 128), np.float32)
+    inp[:, :in_ch] = rng.normal(size=(n, in_ch))
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    return t(inp), mlp_cuda.pack_trunk(ws, in_ch).to(device), t(rng.normal(size=(8, 256)) * 0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 130, 5000])
+def test_cuda_trunk_fwd_matches_plain(cuda_device, n):
+    args = _trunk_inputs(cuda_device, n, n + 3)
+    before = mlp_cuda.LAUNCHES["trunk_fwd"]
+    h, (emb, acts) = mlp_cuda.trunk_fwd(*args, True)
+    h_serve, saved = mlp_cuda.trunk_fwd(*args, False)
+    torch.cuda.synchronize()
+    assert mlp_cuda.LAUNCHES["trunk_fwd"] == before + 2 and saved is None
+    assert h.shape == (n, 256) and h.dtype == torch.bfloat16
+    assert torch.equal(h, h_serve) and torch.equal(h, acts[-1, :n])
+    hp, (embp, actsp) = mlp_cuda.trunk_fwd_plain(*args, True)
+    assert torch.equal(emb, embp)  # the given lanes rounded to bf16, zero padded rows
+    mx, nm = _rel(h.float(), hp.float())
+    assert mx <= 1e-2 and nm <= 5e-3, (mx, nm)
+
+
+@pytest.mark.cuda
+def test_cuda_trunk_bwd_matches_plain(cuda_device):
+    """From the same saved tensors: d emb (N, 128), the packed dW, d bias."""
+    n = 3000
+    inp, wpack, bias = _trunk_inputs(cuda_device, n, 19)
+    _, (emb, acts) = mlp_cuda.trunk_fwd(inp, wpack, bias, True)
+    g = torch.Generator(device="cpu").manual_seed(20)
+    dh = torch.randn(n, 256, generator=g).to(cuda_device).bfloat16().float()
+    before = mlp_cuda.LAUNCHES["trunk_bwd"]
+    got = mlp_cuda.trunk_bwd(dh, wpack, emb, acts)
+    torch.cuda.synchronize()
+    assert mlp_cuda.LAUNCHES["trunk_bwd"] == before + 1
+    want = mlp_cuda.trunk_bwd_plain(dh, wpack, emb, acts)
+    assert got[0].shape == (n, 128) and not got[0][:, 93:].any()
+    for name, a, b in zip(("d_emb", "dW", "dbias"), got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        mx, nm = _rel(a, b)
+        assert mx <= 1e-2 and nm <= 1e-3, (name, mx, nm)
+
+
+@pytest.mark.cuda
+def test_cuda_trunk_kernels_write_every_output(cuda_device):
+    """Over a freed NaN-filled block: h, the saved tensors and d emb are
+    written in full at 130 rows; at no rows the weight gradients are zeros."""
+    for n in (130, 0):
+        inp, wpack, bias = _trunk_inputs(cuda_device, n, 24)
+        poison = torch.full((8, 1 << 20), float("nan"), device=cuda_device)
+        del poison
+        h, (emb, acts) = mlp_cuda.trunk_fwd(inp, wpack, bias, True)
+        assert h.shape == (n, 256) and torch.isfinite(h).all()
+        assert torch.isfinite(emb).all() and torch.isfinite(acts).all()
+        poison = torch.full((8, 1 << 20), float("nan"), device=cuda_device)
+        del poison
+        got = mlp_cuda.trunk_bwd(torch.ones(n, 256, device=cuda_device), wpack, emb, acts)
+        torch.cuda.synchronize()
+        assert got[0].shape == (n, 128) and all(torch.isfinite(g).all() for g in got)
+        if n == 0:
+            for g in got[1:]:
+                assert torch.equal(g, torch.zeros_like(g))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_trunk_gradients_match_cpu(cuda_device):
+    """`fused_trunk` under autograd on the card against the CPU: the
+    gradients of x_emb, a broadcast t_emb and every weight, normwise 3e-2."""
+    grads = {}
+    rng = np.random.default_rng(31)
+    x_np = rng.normal(size=(700, 63)).astype(np.float32)
+    t_np = rng.normal(size=(1, 30)).astype(np.float32)
+    for dev in (cuda_device, torch.device("cpu")):
+        _, wpack, bias = _trunk_inputs(dev, 1, 30)
+        ws = [w.float().requires_grad_(True) for w in mlp_cuda.unpack_trunk(wpack.float(), 93)]
+        bs = [b.clone().requires_grad_(True) for b in bias]
+        x = torch.tensor(x_np, device=dev, requires_grad=True)
+        t = torch.tensor(t_np, device=dev, requires_grad=True)
+        h = mlp_cuda.fused_trunk(x, t, ws, bs)
+        loss = (h * torch.linspace(-1, 1, 256, device=dev)).sum() + (h ** 2).sum() * 1e-2
+        grads[dev.type] = [p.cpu() for p in torch.autograd.grad(loss, [x, t] + ws + bs)]
     for i, (a, b) in enumerate(zip(grads["cuda"], grads["cpu"])):
         _, nm = _rel(a, b)
         assert nm <= 3e-2, (i, nm)
