@@ -25,7 +25,11 @@ every kernel built from this checkout. Phases, printed as each ends:
               means, the scene's weights and time row) and its backward
               with a seeded cotangent: max |diff|, elements outside the
               budget, kernel and plain ms (CUDA events), and the least time
-              the card could take (the bound)
+              the card could take (the bound); each backward's two launches
+              timed apart (the compositor's quadrant walk and combine, the
+              field's data-gradient walk and weight-gradient pass, with the
+              bytes the latter moves at its tile sizes), and two calls of
+              each backward compared bit for bit
   5. serve    the serving path: the HTTP viewer answers GET /render at
               640x480 (tile 32), then at the native 1296x968 (tile 16 and
               32), each frame through the deform field's forward and the
@@ -54,7 +58,8 @@ every kernel built from this checkout. Phases, printed as each ends:
               100k means and their control values; the deform trunk: the
               means and the timenet row): max |diff|, the share of elements
               outside the budget, kernel ms (training and serving modes),
-              plain ms and the bound
+              plain ms and the bound; the backward's launches timed apart
+              and two calls compared bit for bit, as in phase 4
  10. serve2   the stage-2 serving path: the slider viewer answers GET
               /render with non-zero sliders at 640x480 (tile 32); latency,
               and launches zeroed before the requests and read after (one
@@ -89,7 +94,8 @@ every kernel built from this checkout. Phases, printed as each ends:
               kernel against its plain version and row 2's kernel)
  17. trunk    the deform field with per-point times at N = 1e5 (its trunk
               on the precomputed embedding) forward and backward, launches;
-              the kernel pair against its plain versions, ms, bound
+              the kernel pair against its plain versions, ms, bound, and the
+              backward's launches as in phase 4
 
 Then one JSON line of kernel records and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -422,6 +428,54 @@ def field_bound(n: int, in_ch: int, save: bool, backward: bool, heads: bool, sou
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def wgrad_bytes(n_pad: int, tile_o: int, tile_k: int, splits: int) -> int:
+    """Bytes the field's weight-gradient pass moves at `n_pad` rows with dW
+    tiles of tile_o outputs x tile_k input columns: each tile reads its
+    tile_o columns of the layer's G (2 B each) and its tile_k input columns
+    over all rows, and each of the `splits` shares writes its f32 partial of
+    the packed weights."""
+    from freegaussian_tpu_torch.ops.mlp_cuda import DEPTH, H, layer_k
+
+    total = 0
+    for i in range(DEPTH):
+        k = layer_k(i)
+        total += (k // tile_k) * n_pad * H * 2  # G: all tiles along k, tile_o columns each
+        total += (H // tile_o) * n_pad * k * 2  # the input: all tiles along the outputs
+        total += splits * H * k * 4
+    return total
+
+
+def field_bwd_parts(kind: str, bwd_fn, bargs, launch_args) -> dict:
+    """The field backward's two launches timed apart (CUDA events, median of
+    25: the data-gradient walk, then the weight-gradient pass from its G),
+    the weight-gradient pass's bytes from its tile sizes (and from the
+    parent design's 128 x 32 tiles), and whether two whole backward calls
+    give the same bits."""
+    import torch
+
+    from freegaussian_tpu_torch.ops import mlp_cuda as mc
+
+    heads, x, dout, wpack, head_w, emb, acts, sources, x_lanes = launch_args
+    bufs = mc.bwd_buffers(dout.shape[0], sources, dout.device)
+    launch = lambda parts: mc.launch_bwd(heads, x, dout, wpack, head_w, emb, acts, sources, x_lanes, bufs, parts)
+    launch(mc.DGRAD_PART | mc.WGRAD_PART)
+    first, second = bwd_fn(*bargs), bwd_fn(*bargs)
+    torch.cuda.synchronize()
+    n_pad = emb.shape[0]
+    splits = bufs["partial"].shape[0]
+    out = dict(
+        dgrad_ms=cuda_ms(lambda: launch(mc.DGRAD_PART), reps=25),
+        wgrad_ms=cuda_ms(lambda: launch(mc.WGRAD_PART), reps=25),
+        wgrad_bytes=wgrad_bytes(n_pad, mc.H, mc.WGRAD_TILE_K, splits),
+        wgrad_bytes_parent_tiles=wgrad_bytes(n_pad, 128, 32, splits),
+        bit_equal=all(torch.equal(a, b) for a, b in zip(first, second) if a is not None),
+    )
+    print(f"kernel {kind} parts " + json.dumps(out))
+    if not out["bit_equal"]:
+        raise AssertionError(f"{kind}: two backward calls on the same inputs differ")
+    return out
+
+
 def _rel_errs(got, want):
     """(max |diff| / max |want|, ||diff|| / ||want||)."""
     got, want = got.double(), want.double()
@@ -609,6 +663,8 @@ def _check_deform(x, t_row, ws, bs, head_w, head_b) -> dict:
             plain_ms=cuda_ms(lambda: mc.deform_field_bwd_plain(*bargs), reps=5),
         )
         bwd["bound_ms"], bwd["bound_by"] = field_bound(n, in_ch, True, True, True)
+        bwd["parts"] = field_bwd_parts("deform_bwd", mc.deform_field_bwd, bargs,
+                                       (True, x, dy, fargs[2], fargs[4], emb, acts, 1, x_lanes))
         print("kernel deform_bwd " + json.dumps(bwd))
         for name, (mx, nm) in errs.items():
             if not (mx <= DEFORM_GRAD_MAX_REL and nm <= DEFORM_GRAD_NORM_REL):
@@ -679,6 +735,7 @@ def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16
                 for walk, rows_k, args, fn in (("rev", got, kargs, rasterize_tiles_bwd), ("fwd", got_f, fargs, rasterize_tiles_bwd_fwd)):
                     if frame == "sparse" and walk == "rev":
                         continue
+                    name = "rasterize_bwd" if walk == "rev" else "rasterize_bwd_fwd"
                     diff, outside, rel = budget(rows_k, want)
                     row = dict(
                         frame=frame, walk=walk, tile=tile, C=C, num_isects=isect.num_isects, elements=rows_k.numel(),
@@ -686,14 +743,17 @@ def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16
                         outside_share=outside / max(rows_k.numel(), 1), zero_rows=int((rows_k == 0).all(1).sum()),
                         ms=cuda_ms(lambda: fn(*args), reps=25), plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
                     )
+                    if frame == "bench":
+                        row.update(_bwd_parts(name, fwd_args, livecnt, args[8], g_color, g_alpha, width, height, tile, rows_k))
                     if walk == "fwd":
                         row["max_abs_diff_to_rev_kernel"] = float((rows_k - got).abs().max())
                         row["outside_budget_to_rev_kernel"] = budget(rows_k, got)[1]
                         row["zero_rows_differ_from_rev_kernel"] = int(((rows_k == 0).all(1) != (got == 0).all(1)).sum())
-                    name = "rasterize_bwd" if walk == "rev" else "rasterize_bwd_fwd"
                     print(f"kernel {name} " + json.dumps(row))
                     if not torch.isfinite(rows_k).all():
                         raise AssertionError(f"{name} at tile {tile}, C={C} ({frame}): non-finite rows")
+                    if not row.get("bit_equal", True):
+                        raise AssertionError(f"{name} at tile {tile}, C={C}: two calls on the same inputs differ")
                     held = [("plain", outside)]
                     if walk == "fwd":
                         held.append(("row 2's kernel", row["outside_budget_to_rev_kernel"]))
@@ -710,6 +770,27 @@ def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16
                             )
                     rows.append(row)
     return rows
+
+
+def _bwd_parts(name, fwd_args, livecnt, pixel_in, g_color, g_alpha, width, height, tile, rows_k) -> dict:
+    """The compositor backward's two launches timed apart (CUDA events,
+    median of 25: the quadrant walk into the scratch, then the combine into
+    the rows), the scratch's size, and whether a second call on the same
+    inputs gives `rows_k`'s bits."""
+    import torch
+
+    from freegaussian_tpu_torch.ops import rasterize_cuda as rc
+
+    rows, scratch = rc.bwd_buffers(rows_k.shape[0], rows_k.shape[1] - rc.GRAD_ROW_HEAD, tile, rows_k.device)
+    launch = lambda parts: rc.launch_bwd(name, *fwd_args, livecnt, pixel_in, g_color, g_alpha, width, height, tile,
+                                         rows, scratch, parts)
+    launch(rc.BWD_WALK_PART | rc.BWD_COMBINE_PART)
+    torch.cuda.synchronize()
+    return dict(
+        walk_ms=cuda_ms(lambda: launch(rc.BWD_WALK_PART), reps=25),
+        combine_ms=cuda_ms(lambda: launch(rc.BWD_COMBINE_PART), reps=25),
+        scratch_bytes=scratch.numel() * 4, bit_equal=bool(torch.equal(rows, rows_k)),
+    )
 
 
 def _serve(render_fn, width: int, height: int, views, label: str, per_request: dict, num_attributes: int = 0,
@@ -1116,6 +1197,8 @@ def _check_field(mode, x, value, t_row, ws, bs) -> dict:
             plain_ms=cuda_ms(lambda: mc.field_trunk_bwd_plain(*bargs), reps=5),
         )
         bwd["bound_ms"], bwd["bound_by"] = field_bound(n, in_ch, True, True, False, sources)
+        bwd["parts"] = field_bwd_parts(f"field_bwd ({mode})", mc.field_trunk_bwd, bargs,
+                                       (False, xsrc, dh, wpack, None, emb, acts, sources, x_lanes))
         print("kernel field_bwd " + json.dumps(bwd))
         for name, (emx, enm) in errs.items():
             if not (emx <= DEFORM_GRAD_MAX_REL and enm <= DEFORM_GRAD_NORM_REL):
@@ -1594,6 +1677,8 @@ def phase_trunk(model) -> dict:
             plain_ms=cuda_ms(lambda: mc.trunk_bwd_plain(dh, wpack, emb, acts), reps=5),
         )
         bwd["bound_ms"], bwd["bound_by"] = trunk_bound(n, in_ch, True, True)
+        bwd["parts"] = field_bwd_parts("trunk_bwd", mc.trunk_bwd, (dh, wpack, emb, acts),
+                                       (False, None, dh, wpack, None, emb, acts, 0, 0))
         print("kernel trunk_bwd " + json.dumps(bwd))
         for name, (emx, enm) in errs.items():
             if not (emx <= DEFORM_GRAD_MAX_REL and enm <= DEFORM_GRAD_NORM_REL):

@@ -31,9 +31,9 @@
 // the S X lanes after them: the deform field is S = 1 with the timenet's 30
 // lanes, the control field S = 2 (position, control value) without a time
 // row (126 lanes). Matrix products take bf16 operands with f32 accumulation
-// (tensor cores, WMMA 16x16x16), the bias and ReLU run in f32 and each
-// activation is stored as bf16: the numerics of mlp_pallas.py (_mm,
-// _forward_acts). The heads run in f32 on the CUDA cores, as the Pallas
+// (tensor cores: WMMA 16x16x16 forward, mma.sync m16n8k16 backward), the
+// bias and ReLU run in f32 and each activation is stored as bf16: the
+// numerics of mlp_pallas.py (_mm, _forward_acts). The heads run in f32 on the CUDA cores, as the Pallas
 // kernel runs them at HIGHEST.
 //
 // The backward takes dy (N, 13) f32 (HEADS) or dh (N, 256) f32 (!HEADS) and
@@ -46,25 +46,38 @@
 // gradients resident across its sequential grid; here blocks run in parallel,
 // so the work is split in three launches:
 //   field_fwd_kernel    one block of 64 rows runs the embedding, the trunk
-//                       (activations ping-pong in shared memory, weights read
-//                       through L2) and the heads or the h store. In training
-//                       it also writes the bf16 embedding and the eight
-//                       activations (4.35 KB a row), which the backward reads
-//                       instead of recomputing.
-//   field_dgrad_kernel  one block of 64 rows walks the layers top down and
-//                       writes each layer's masked gradient bf16(g) (the
-//                       operand of its weight gradient), the small f32 sums
-//                       (biases, heads, time row) by atomics, and dx.
-//   field_wgrad_kernel  dW = h_below^T bf16(g) for all eight layers: one block
-//                       per (layer, 128 x 32 tile of dW, share of the rows),
-//                       each writing its partial sum; the wrapper adds the
-//                       shares in a fixed order.
+//                       (activations ping-pong in shared memory, WMMA B tiles
+//                       read through L2) and the heads or the h store. In
+//                       training it also writes the bf16 embedding and the
+//                       eight activations (4.35 KB a row), which the backward
+//                       reads instead of recomputing.
+//   field_dgrad_kernel  one block of 128 rows (16 warps, one block an SM:
+//                       216,064 bytes of shared memory) walks the layers top
+//                       down. Each product is mma.sync m16n8k16 fed by
+//                       ldmatrix: A is the block's bf16(g) in shared memory,
+//                       B the layer's weight staged 64 rows (32 KB) at a time
+//                       through a two-slice cp.async ring, the next slice in
+//                       flight during this one's products; the next mask
+//                       activation loads by cp.async during the products too.
+//                       The epilogue masks, stores bf16(g) in place and sums
+//                       columns by warp shuffles (no atomics); the layer's G
+//                       leaves by 16-byte stores while the next layer's
+//                       products run. The block's f32 sums (biases, heads,
+//                       d emb row sums) go to its own row of a scratch, added
+//                       in a fixed order by the wrapper.
+//   field_wgrad_kernel  dW = h_below^T bf16(g): one block per (layer, 256 x
+//                       128 tile of dW, share of the rows): G and the input
+//                       stream through a four-chunk cp.async ring (64 rows a
+//                       chunk), the products in mma.sync with ldmatrix.trans
+//                       operands, the sums in registers; G of a layer is read
+//                       K / 128 times (1-3), its input once. Each share writes
+//                       its partial sum; the wrapper adds the shares in a fixed
+//                       order, so the weight gradients are deterministic.
 // Bound on an H100: ~1.0e11 bf16 tensor operations per forward at N = 1e5
 // (2.1e11 backward) against ~0.46 GB of saved-activation traffic in
-// training; chip_smoke.py prints both bounds from its own run. This first
-// version reads the weights' WMMA tiles straight from L2 and keeps one block
-// of 64 rows per SM pass: wgmma, TMA staging and a persistent schedule are
-// later work.
+// training; chip_smoke.py prints both bounds from its own run, and the
+// weight-gradient pass's bytes from its tile sizes. wgmma and TMA are later
+// work; the forward is still the first version's.
 //
 // sinf / cosf, never __sinf: with -fmad=false the scaled argument (a power of
 // two times x, exact) reaches the thousands at 2^9, where the fast intrinsic
@@ -95,11 +108,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int XBYTES = ROWS * 3 * MAX_SRC * 4 + 512;  // the block's source rows, rounded to 2 KB
 constexpr int LDE = EMB + 8;  // shared-memory row strides (bf16 / f32 elements)
 constexpr int LDA = H + 8;
-constexpr int LDS = EMB + 8;
-constexpr int WG_O = 128;     // weight-gradient tile: output rows x input columns
-constexpr int WG_K = 32;
-constexpr int LDG = WG_O + 8;
-constexpr int LDI = WG_K + 8;
 
 __host__ __device__ constexpr int layer_k(int i) { return i == 0 ? EMB : (i == SKIP_IN ? EMB + H : H); }
 
@@ -109,30 +117,18 @@ __host__ __device__ constexpr long layer_off(int i) {
     return o;
 }
 
-__host__ __device__ constexpr int wgrad_tiles(int i) { return (H / WG_O) * (layer_k(i) / WG_K); }
-
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
 
-template <typename L>
-__device__ __forceinline__ const bf16* btile(const bf16* B, int ldb, int k0, int n0);
-template <>
-__device__ __forceinline__ const bf16* btile<wmma::col_major>(const bf16* B, int ldb, int k0, int n0) {
-    return B + (size_t)n0 * ldb + k0;  // B(k, n) = W[n][k]: the forward's W^T
-}
-template <>
-__device__ __forceinline__ const bf16* btile<wmma::row_major>(const bf16* B, int ldb, int k0, int n0) {
-    return B + (size_t)k0 * ldb + n0;  // B(k, n) = W[k][n]: the backward's W
-}
-
 // acc[r][t] += A[r-th 16 rows, :kdim] @ B[:kdim, n0 + 16 t ...]: A is the
-// block's 64 rows in shared memory, B a weight in global memory (L2).
-template <typename L, int NT>
+// block's 64 rows in shared memory, B(k, n) = W[n][k] (the forward's W^T) a
+// weight in global memory (L2).
+template <int NT>
 __device__ __forceinline__ void gemm64(Acc (&acc)[4][NT], const bf16* sA, int lda, int kdim,
                                        const bf16* B, int ldb, int n0) {
     for (int k0 = 0; k0 < kdim; k0 += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, L> b[NT];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[NT];
 #pragma unroll
-        for (int t = 0; t < NT; ++t) wmma::load_matrix_sync(b[t], btile<L>(B, ldb, k0, n0 + 16 * t), ldb);
+        for (int t = 0; t < NT; ++t) wmma::load_matrix_sync(b[t], B + (size_t)(n0 + 16 * t) * ldb + k0, ldb);
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
             wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
@@ -166,18 +162,14 @@ __device__ __forceinline__ void epilogue(Acc (&acc)[4][NT], float* stage, int n0
         }
 }
 
-// `rows` rows of `cols` bf16 between global memory (row stride ldg) and
-// shared memory (row stride lds), 16 bytes a thread.
-template <bool TO_SHARED>
-__device__ __forceinline__ void copy_rows(bf16* smem, int lds, bf16* gmem, int ldg, int cols, int tid,
+// `rows` rows of `cols` bf16 from shared memory (row stride lds) to global
+// memory (row stride ldg), 16 bytes a thread.
+__device__ __forceinline__ void copy_rows(const bf16* smem, int lds, bf16* gmem, int ldg, int cols, int tid,
                                           int rows = ROWS) {
     const int per_row = cols / 8;
     for (int i = tid; i < rows * per_row; i += THREADS) {
         const int r = i / per_row, c = (i - r * per_row) * 8;
-        uint4* s = (uint4*)(smem + r * lds + c);
-        uint4* g = (uint4*)(gmem + (size_t)r * ldg + c);
-        if (TO_SHARED) *s = *g;
-        else *g = *s;
+        *(uint4*)(gmem + (size_t)r * ldg + c) = *(const uint4*)(smem + r * lds + c);
     }
 }
 
@@ -240,7 +232,7 @@ field_fwd_kernel(const float* __restrict__ x,      // (N, 3 S)
         s_emb[r * LDE + l] = __float2bfloat16_rn(v);
     }
     __syncthreads();
-    if (emb_out) copy_rows<false>(s_emb, LDE, emb_out + (size_t)row0 * EMB, EMB, EMB, tid);
+    if (emb_out) copy_rows(s_emb, LDE, emb_out + (size_t)row0 * EMB, EMB, EMB, tid);
 
     bf16* cur = s_act0;
     bf16* nxt = s_act1;
@@ -251,19 +243,19 @@ field_fwd_kernel(const float* __restrict__ x,      // (N, 3 S)
         const bf16* W = wpack + layer_off(i);
         const int K = layer_k(i);
         if (i == 0) {
-            gemm64<wmma::col_major, 2>(acc, s_emb, LDE, EMB, W, K, n0);
+            gemm64<2>(acc, s_emb, LDE, EMB, W, K, n0);
         } else if (i == SKIP_IN) {
-            gemm64<wmma::col_major, 2>(acc, s_emb, LDE, EMB, W, K, n0);
-            gemm64<wmma::col_major, 2>(acc, cur, LDA, H, W + EMB, K, n0);
+            gemm64<2>(acc, s_emb, LDE, EMB, W, K, n0);
+            gemm64<2>(acc, cur, LDA, H, W + EMB, K, n0);
         } else {
-            gemm64<wmma::col_major, 2>(acc, cur, LDA, H, W, K, n0);
+            gemm64<2>(acc, cur, LDA, H, W, K, n0);
         }
         const float* b = bias + i * H;
         epilogue(acc, stage, n0, lane, [&](int r, int c, float v) {
             nxt[r * LDA + c] = __float2bfloat16_rn(relu(v + b[c]));
         });
         __syncthreads();
-        if (acts_out) copy_rows<false>(nxt, LDA, acts_out + ((size_t)i * n_pad + row0) * H, H, H, tid);
+        if (acts_out) copy_rows(nxt, LDA, acts_out + ((size_t)i * n_pad + row0) * H, H, H, tid);
         bf16* tmp = cur;
         cur = nxt;
         nxt = tmp;
@@ -282,70 +274,217 @@ field_fwd_kernel(const float* __restrict__ x,      // (N, 3 S)
         }
     } else if (!acts_out) {  // in training h is acts_out[7], stored above
         const int rows = min(ROWS, n - row0);  // the last block's rows past n are padding
-        if (rows > 0) copy_rows<false>(cur, LDA, (bf16*)out + (size_t)row0 * H, H, H, tid, rows);
+        if (rows > 0) copy_rows(cur, LDA, (bf16*)out + (size_t)row0 * H, H, H, tid, rows);
     }
 }
 
-constexpr size_t DGRAD_SMEM =
-    XBYTES + sizeof(float) * ROWS * 16 + sizeof(bf16) * 3 * ROWS * LDA + sizeof(float) * (ROWS * LDS + WARPS * 256 + H);
+// ---------------------------------------------------------------------------
+// the backward: tensor-core products with mma.sync m16n8k16 (bf16 operands,
+// f32 accumulation), operands fed by ldmatrix from shared memory, rows and
+// weight slices staged by cp.async
+// ---------------------------------------------------------------------------
+
+constexpr int BROWS = 128;          // rows of one data-gradient block
+constexpr int BTHREADS = 512;       // 16 warps: 2 (rows) x 8 (columns) in the data-gradient walk
+constexpr int WS = 64;              // weight rows (the products' reduction) per staged slice
+constexpr int LDW = H + 8;          // staged weight slice stride (bf16)
+constexpr int LDD = EMB + 4;        // d emb stride (f32)
+// per-block f32 sums, in this order: d bias (8, 256), d head_w (13, 256),
+// d head_b (13,), the row sum of d emb (128,)
+constexpr int SM_DB = 0;
+constexpr int SM_DHW = SM_DB + DEPTH * H;
+constexpr int SM_DHB = SM_DHW + NOUT * H;
+constexpr int SM_DEMB = SM_DHB + NOUT;
+constexpr int SMALL = SM_DEMB + EMB;
+constexpr int WG_TK = 128;          // weight-gradient tile: all 256 outputs x 128 input columns
+constexpr int WG_CHUNK = 64;        // rows per staged chunk
+constexpr int WG_STAGES = 4;
+constexpr int LDGW = H + 8;         // staged G chunk stride (bf16)
+constexpr int LDIW = WG_TK + 8;     // staged input chunk stride (bf16)
+
+__host__ __device__ constexpr int wgrad_tiles(int i) { return layer_k(i) / WG_TK; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices; lane l gives the row address of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p))
+                 : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p))
+                 : "memory");
+}
+
+// d (16x8 f32) += a (16x16 bf16, row) b (16x8 bf16, col)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The block's 128 rows of 256 bf16 between global memory (row stride H) and
+// shared memory (row stride LDA), 16 bytes a thread at a time: into shared
+// memory by cp.async (the caller commits and waits), out by plain stores.
+__device__ __forceinline__ void load_rows_async(bf16* smem, const bf16* gmem, int tid) {
+    for (int i = tid; i < BROWS * (H / 8); i += BTHREADS) {
+        const int r = i / (H / 8), c = (i % (H / 8)) * 8;
+        cp_async16(smem + r * LDA + c, gmem + (size_t)r * H + c);
+    }
+}
+__device__ __forceinline__ void store_rows(bf16* gmem, const bf16* smem, int tid) {
+    for (int i = tid; i < BROWS * (H / 8); i += BTHREADS) {
+        const int r = i / (H / 8), c = (i % (H / 8)) * 8;
+        *(uint4*)(gmem + (size_t)r * H + c) = *(const uint4*)(smem + r * LDA + c);
+    }
+}
+
+// acc += A (the block's 128 rows x 256, shared, stride LDA) @ W[0:256, 0:8 NT 8]
+// (global, row stride ldw): warp (wm, wn) owns rows 64 wm .. and columns
+// NT 8 wn ..; each lane holds acc[mt][nt] of the m16n8 tile (mt, nt). W goes
+// through a two-slice ring in shared memory, 64 of its rows a slice, the
+// next slice's cp.async in flight while the products of this one run. With
+// `side_dst`, the 128 x 256 bf16 rows at `side_src` are loaded into it by
+// cp.async alongside, complete (for the calling thread) from the third
+// slice on. The caller syncs the block before (the ring and side_dst are
+// free, A is written) and after (before anything overwrites A or the ring).
+template <int NT>
+__device__ __forceinline__ void gemm_staged(float (&acc)[4][NT][4], const bf16* sA, const bf16* W, int ldw,
+                                            bf16* ring, bf16* side_dst, const bf16* side_src, int tid, int lane,
+                                            int wm, int wn) {
+    constexpr int COLS = 8 * NT * 8;   // output columns of the block
+    constexpr int PER_ROW = COLS / 8;  // 16-byte chunks in a slice row
+    constexpr int SLICES = H / WS;
+    static_assert(SLICES == 4, "the wait counts below assume four slices");
+    auto load_slice = [&](int s) {
+        bf16* dst = ring + (s & 1) * WS * LDW;
+        const bf16* src = W + (size_t)(s * WS) * ldw;
+        for (int c = tid; c < WS * PER_ROW; c += BTHREADS) {
+            const int r = c / PER_ROW, cc = (c % PER_ROW) * 8;
+            cp_async16(dst + r * LDW + cc, src + (size_t)r * ldw + cc);
+        }
+    };
+    load_slice(0);
+    cp_async_commit();
+#pragma unroll 1
+    for (int s = 0; s < SLICES; ++s) {
+        // groups in commit order: slice 0 | slice 1, side | slice 2 | slice 3
+        if (s == 1) cp_async_wait<1>();
+        else cp_async_wait<0>();
+        __syncthreads();  // slice s in place for every thread; slice s - 1 read by every warp
+        if (s + 1 < SLICES) load_slice(s + 1);
+        cp_async_commit();
+        if (s == 0) {
+            if (side_dst) load_rows_async(side_dst, side_src, tid);
+            cp_async_commit();
+        }
+        const bf16* sw = ring + (s & 1) * WS * LDW;
+#pragma unroll
+        for (int kk = 0; kk < WS; kk += 16) {
+            uint32_t b[NT][2];
+#pragma unroll
+            for (int np = 0; np < NT / 2; ++np) {
+                uint32_t r[4];
+                ldsm_x4_t(r, sw + (kk + (lane & 15)) * LDW + wn * (8 * NT) + np * 16 + (lane >> 4) * 8);
+                b[2 * np][0] = r[0];
+                b[2 * np][1] = r[1];
+                b[2 * np + 1][0] = r[2];
+                b[2 * np + 1][1] = r[3];
+            }
+#pragma unroll
+            for (int mt = 0; mt < 4; ++mt) {
+                uint32_t a[4];
+                ldsm_x4(a, sA + (wm * 64 + mt * 16 + (lane & 15)) * LDA + s * WS + kk + (lane >> 4) * 8);
+#pragma unroll
+                for (int nt = 0; nt < NT; ++nt) mma16816(acc[mt][nt], a, b[nt][0], b[nt][1]);
+            }
+        }
+    }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero_acc(float (&acc)[4][NT][4]) {
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+}
+
+constexpr size_t BXBYTES = sizeof(float) * BROWS * 3 * MAX_SRC;
+constexpr size_t DGRAD_SMEM = BXBYTES + sizeof(float) * BROWS * 16 + sizeof(bf16) * (2 * BROWS * LDA + 2 * WS * LDW) +
+                              sizeof(float) * 2 * H;
+static_assert(sizeof(float) * NOUT * H <= sizeof(bf16) * 2 * WS * LDW, "the heads' reduction fits the ring");
+static_assert(sizeof(float) * BROWS * LDD <= sizeof(bf16) * 2 * WS * LDW, "d emb fits the ring");
+static_assert(DGRAD_SMEM <= 232448, "one block's shared memory");
 
 template <bool HEADS>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(BTHREADS, 1)
 field_dgrad_kernel(const float* __restrict__ x, int n, int src, int xl,
                    const float* __restrict__ dout,   // dy (N, 13) (HEADS) or dh (N, 256)
                    const bf16* __restrict__ wpack, const float* __restrict__ hw,
                    const bf16* __restrict__ acts,    // (8, N_pad, 256)
                    int n_pad,
                    bf16* __restrict__ G,             // (8, N_pad, 256) out: bf16(g) per layer
-                   float* __restrict__ dbias,        // (8, 256), accumulated
-                   float* __restrict__ dhw,          // (13, 256), accumulated (HEADS)
-                   float* __restrict__ dhb,          // (13,), accumulated (HEADS)
-                   float* __restrict__ demb_sum,     // (128,), accumulated; not touched for S = 0
+                   float* __restrict__ small,        // (blocks, SMALL) out: this block's f32 sums
                    float* __restrict__ dx) {         // (N, 3 S), or d emb (N, 128) for S = 0
     extern __shared__ __align__(128) unsigned char smem[];
     float* s_x = (float*)smem;
-    float* s_dy = (float*)(smem + XBYTES);
-    bf16* s_g0 = (bf16*)(s_dy + ROWS * 16);
-    bf16* s_g1 = s_g0 + ROWS * LDA;
-    bf16* s_a = s_g1 + ROWS * LDA;
-    float* s_demb = (float*)(s_a + ROWS * LDA);
-    float* s_stage = s_demb + ROWS * LDS;
-    float* s_db = s_stage + WARPS * 256;
+    float* s_dy = (float*)(smem + BXBYTES);
+    bf16* s_g = (bf16*)(s_dy + BROWS * 16);  // the current layer's bf16(g), in place
+    bf16* s_m = s_g + BROWS * LDA;           // the mask activation (or g_5 at the end)
+    bf16* s_w = s_m + BROWS * LDA;           // the weight ring
+    float* s_db = (float*)(s_w + 2 * WS * LDW);  // [row half][256] column sums
+    float* s_red = (float*)s_w;              // the heads' second-half sums (top layer only)
+    float* s_demb = (float*)s_w;             // d emb (the end only)
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int row0 = blockIdx.x * ROWS;
-    float* stage = s_stage + warp * 256;
+    const int wm = warp >> 3, wn = warp & 7;
+    const int row0 = blockIdx.x * BROWS;
+    float* pb = small + (size_t)blockIdx.x * SMALL;
 
-    load_sources(s_x, x, row0, n, src, tid);
+    for (int i = tid; i < BROWS * 3 * src; i += BTHREADS)
+        s_x[i] = row0 + i / (3 * src) < n ? x[(size_t)row0 * 3 * src + i] : 0.0f;
     if (HEADS) {
-        for (int i = tid; i < ROWS * 16; i += THREADS) {
+        for (int i = tid; i < BROWS * 16; i += BTHREADS) {
             const int r = i >> 4, j = i & 15;
             s_dy[i] = (j < NOUT && row0 + r < n) ? dout[(size_t)(row0 + r) * NOUT + j] : 0.0f;
         }
     }
-    copy_rows<true>(s_a, LDA, (bf16*)acts + ((size_t)(DEPTH - 1) * n_pad + row0) * H, H, H, tid);
+    load_rows_async(s_m, acts + ((size_t)(DEPTH - 1) * n_pad + row0) * H, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
 
-    // the top layer's g_7, one column per thread: HEADS, d HB, d HW = h_7^T
-    // dy and g_7 = (dy @ HW) * (h_7 > 0); else g_7 = dh * (h_7 > 0)
-    bf16* cur = s_g0;
-    bf16* nxt = s_g1;
+    // the top layer's g_7, one column and 64 rows per thread: HEADS, d HB,
+    // d HW = h_7^T dy and g_7 = (dy @ HW) * (h_7 > 0); else g_7 = dh * (h_7 > 0)
     {
-        const int k = tid;
+        const int k = tid & (H - 1), half = tid / H;
         float db = 0.0f;
         if (HEADS) {
-            if (tid < NOUT) {
-                float s = 0.0f;
-                for (int r = 0; r < ROWS; ++r) s += s_dy[r * 16 + tid];
-                atomicAdd(dhb + tid, s);
-            }
             float hwk[NOUT], dacc[NOUT];
 #pragma unroll
             for (int j = 0; j < NOUT; ++j) {
                 hwk[j] = hw[j * H + k];
                 dacc[j] = 0.0f;
             }
-            for (int r = 0; r < ROWS; ++r) {
-                const float a = __bfloat162float(s_a[r * LDA + k]);
+            for (int r = half * 64; r < half * 64 + 64; ++r) {
+                const float a = __bfloat162float(s_m[r * LDA + k]);
                 float g = 0.0f;
 #pragma unroll
                 for (int j = 0; j < NOUT; ++j) {
@@ -355,157 +494,233 @@ field_dgrad_kernel(const float* __restrict__ x, int n, int src, int xl,
                 }
                 g = g * (a > 0.0f ? 1.0f : 0.0f);
                 db += g;
-                cur[r * LDA + k] = __float2bfloat16_rn(g);
+                s_g[r * LDA + k] = __float2bfloat16_rn(g);
             }
+            if (half == 1)
 #pragma unroll
-            for (int j = 0; j < NOUT; ++j) atomicAdd(dhw + j * H + k, dacc[j]);
+                for (int j = 0; j < NOUT; ++j) s_red[j * H + k] = dacc[j];
+            s_db[half * H + k] = db;
+            __syncthreads();
+            if (half == 0) {
+#pragma unroll
+                for (int j = 0; j < NOUT; ++j) pb[SM_DHW + j * H + k] = dacc[j] + s_red[j * H + k];
+                pb[SM_DB + (DEPTH - 1) * H + k] = s_db[k] + s_db[H + k];
+            } else if (k < NOUT) {
+                float s = 0.0f;
+                for (int r = 0; r < BROWS; ++r) s += s_dy[r * 16 + k];
+                pb[SM_DHB + k] = s;
+            }
         } else {
-            for (int r = 0; r < ROWS; ++r) {
-                const float a = __bfloat162float(s_a[r * LDA + k]);
+            for (int r = half * 64; r < half * 64 + 64; ++r) {
+                const float a = __bfloat162float(s_m[r * LDA + k]);
                 const float d = row0 + r < n ? dout[(size_t)(row0 + r) * H + k] : 0.0f;
                 const float g = d * (a > 0.0f ? 1.0f : 0.0f);
                 db += g;
-                cur[r * LDA + k] = __float2bfloat16_rn(g);
+                s_g[r * LDA + k] = __float2bfloat16_rn(g);
             }
+            s_db[half * H + k] = db;
+            for (int j = tid; j < NOUT * H + NOUT; j += BTHREADS) pb[SM_DHW + j] = 0.0f;  // no heads
+            __syncthreads();
+            if (half == 0) pb[SM_DB + (DEPTH - 1) * H + k] = s_db[k] + s_db[H + k];
         }
-        atomicAdd(dbias + (DEPTH - 1) * H + k, db);
+        __syncthreads();
     }
-    __syncthreads();
-    copy_rows<false>(cur, LDA, G + ((size_t)(DEPTH - 1) * n_pad + row0) * H, H, H, tid);
 
+    // layers 7 .. 1: g_{i-1} = (g_i @ W_i[:, h columns]) * (h_{i-1} > 0)
+#pragma unroll 1
     for (int i = DEPTH - 1; i >= 1; --i) {
-        // mask source: the activation below this layer's input
         const int below = i - 1;
-        copy_rows<true>(s_a, LDA, (bf16*)acts + ((size_t)below * n_pad + row0) * H, H, H, tid);
-        s_db[tid] = 0.0f;
-        __syncthreads();
-        const bf16* W = wpack + layer_off(i);
-        const int K = layer_k(i);
-        const int hoff = i == SKIP_IN ? EMB : 0;
-        const int n0 = warp * 32;
-        Acc acc[4][2];
-        zero(acc);
-        gemm64<wmma::row_major, 2>(acc, cur, LDA, H, W + hoff, K, n0);
-        epilogue(acc, stage, n0, lane, [&](int r, int c, float v) {
-            v = v * (__bfloat162float(s_a[r * LDA + c]) > 0.0f ? 1.0f : 0.0f);
-            atomicAdd(s_db + c, v);
-            nxt[r * LDA + c] = __float2bfloat16_rn(v);
-        });
-        if (i == SKIP_IN && warp < EMB / 16) {
-            // the skip's share of d emb: g_5 @ W5[:, :128]^T
-            Acc sk[4][1];
-            zero(sk);
-            gemm64<wmma::row_major, 1>(sk, cur, LDA, H, W, K, warp * 16);
+        store_rows(G + ((size_t)i * n_pad + row0) * H, s_g, tid);  // bf16(g_i), the weight gradient's operand
+        float acc[4][4][4];
+        zero_acc(acc);
+        gemm_staged<4>(acc, s_g, wpack + layer_off(i) + (i == SKIP_IN ? EMB : 0), layer_k(i), s_w, s_m,
+                       acts + ((size_t)below * n_pad + row0) * H, tid, lane, wm, wn);
+        __syncthreads();  // every warp has read s_g; the mask is in s_m
+        // epilogue: mask, store bf16(g) in place, column sums of the f32 g
+        float cs[4][2];
 #pragma unroll
-            for (int r = 0; r < 4; ++r)
-                wmma::store_matrix_sync(s_demb + r * 16 * LDS + warp * 16, sk[r][0], LDS, wmma::mem_row_major);
-        }
+        for (int nt = 0; nt < 4; ++nt) cs[nt][0] = cs[nt][1] = 0.0f;
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf) {
+                    const int r = wm * 64 + mt * 16 + (lane >> 2) + 8 * hf;
+                    const int c = wn * 32 + nt * 8 + (lane & 3) * 2;
+                    const __nv_bfloat162 m2 = *(const __nv_bfloat162*)(s_m + r * LDA + c);
+                    const float v0 = acc[mt][nt][2 * hf] * (__low2float(m2) > 0.0f ? 1.0f : 0.0f);
+                    const float v1 = acc[mt][nt][2 * hf + 1] * (__high2float(m2) > 0.0f ? 1.0f : 0.0f);
+                    cs[nt][0] += v0;
+                    cs[nt][1] += v1;
+                    *(__nv_bfloat162*)(s_g + r * LDA + c) = __floats2bfloat162_rn(v0, v1);
+                }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                float v = cs[nt][e];
+                v += __shfl_xor_sync(0xffffffffu, v, 4);
+                v += __shfl_xor_sync(0xffffffffu, v, 8);
+                v += __shfl_xor_sync(0xffffffffu, v, 16);
+                if (lane < 4) s_db[wm * H + wn * 32 + nt * 8 + lane * 2 + e] = v;
+            }
         __syncthreads();
-        copy_rows<false>(nxt, LDA, G + ((size_t)below * n_pad + row0) * H, H, H, tid);
-        atomicAdd(dbias + below * H + tid, s_db[tid]);
-        bf16* tmp = cur;
-        cur = nxt;
-        nxt = tmp;
+        if (tid < H) pb[SM_DB + below * H + tid] = s_db[tid] + s_db[H + tid];
     }
 
-    // layer 0: d emb = g_0 @ W0^T + the skip's share
-    if (warp < EMB / 16) {
-        Acc acc[4][1];
+    // layer 0 and the skip's embedding columns: d emb = g_0 @ W0 + g_5 @ W5[:, :128],
+    // g_5 reloaded (bf16, as the product takes it) from G into s_m
+    store_rows(G + (size_t)row0 * H, s_g, tid);
+    float acc[4][2][4];
+    zero_acc(acc);
+    gemm_staged<2>(acc, s_g, wpack, EMB, s_w, s_m, G + ((size_t)SKIP_IN * n_pad + row0) * H, tid, lane, wm, wn);
+    __syncthreads();
+    gemm_staged<2>(acc, s_m, wpack + layer_off(SKIP_IN), layer_k(SKIP_IN), s_w, nullptr, nullptr, tid, lane, wm, wn);
+    __syncthreads();
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-            wmma::load_matrix_sync(acc[r][0], s_demb + r * 16 * LDS + warp * 16, LDS, wmma::mem_row_major);
-        gemm64<wmma::row_major, 1>(acc, cur, LDA, H, wpack, EMB, warp * 16);
+    for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-            wmma::store_matrix_sync(s_demb + r * 16 * LDS + warp * 16, acc[r][0], LDS, wmma::mem_row_major);
-    }
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                const int r = wm * 64 + mt * 16 + (lane >> 2) + 8 * hf;
+                const int c = wn * 16 + nt * 8 + (lane & 3) * 2;
+                *(float2*)(s_demb + r * LDD + c) = make_float2(acc[mt][nt][2 * hf], acc[mt][nt][2 * hf + 1]);
+            }
     __syncthreads();
     if (src == 0) {  // d emb itself: every lane of every row below n
-        for (int i = tid; i < ROWS * EMB; i += THREADS) {
+        for (int i = tid; i < BROWS * EMB; i += BTHREADS) {
             const int r = i / EMB, l = i - r * EMB;
-            if (row0 + r < n) dx[(size_t)row0 * EMB + i] = s_demb[r * LDS + l];
+            if (row0 + r < n) dx[(size_t)row0 * EMB + i] = s_demb[r * LDD + l];
         }
+        if (tid < EMB) pb[SM_DEMB + tid] = 0.0f;
         return;
     }
     if (tid < EMB) {
         float s = 0.0f;
-        for (int r = 0; r < ROWS; ++r) s += s_demb[r * LDS + tid];
-        atomicAdd(demb_sum + tid, s);
+        for (int r = 0; r < BROWS; ++r) s += s_demb[r * LDD + tid];
+        pb[SM_DEMB + tid] = s;
     }
     // dx: lane (s, b, c) is x_sc, sin(f x_sc) or cos(f x_sc)
     const int xw = 3 * src;
-    for (int i = tid; i < ROWS * xw; i += THREADS) {
+    for (int i = tid; i < BROWS * xw; i += BTHREADS) {
         const int r = i / xw, sc = i - r * xw, s = sc / 3, c = sc - 3 * s;
         if (row0 + r >= n) continue;
         const float xv = s_x[i];
-        const float* d = s_demb + r * LDS + s * xl;
-        float acc = d[c];
+        const float* d = s_demb + r * LDD + s * xl;
+        float a = d[c];
         for (int b = 1; b < xl / 3; ++b) {
             const float f = (float)(1 << ((b - 1) >> 1));
-            const float a = xv * f;
-            const float deriv = (b & 1) ? cosf(a) : -sinf(a);
-            acc += d[3 * b + c] * deriv * f;
+            const float v = xv * f;
+            const float deriv = (b & 1) ? cosf(v) : -sinf(v);
+            a += d[3 * b + c] * deriv * f;
         }
-        dx[(size_t)(row0 + r) * xw + sc] = acc;
+        dx[(size_t)(row0 + r) * xw + sc] = a;
     }
 }
 
-constexpr size_t WGRAD_SMEM = sizeof(bf16) * ROWS * (LDG + LDI);
+constexpr size_t WGRAD_SMEM = sizeof(bf16) * WG_STAGES * WG_CHUNK * (LDGW + LDIW);
+static_assert(WGRAD_SMEM <= 232448, "one block's shared memory");
 
-__global__ void __launch_bounds__(THREADS)
+// dW tile (layer i, input columns k0 .. k0 + 127, all 256 outputs) over the
+// block's share of the rows: dW[o][k] = sum_r G[r][o] In[r][k]. Warp (wo,
+// wk) owns outputs 64 wo .. and columns 32 wk ..; rows stream through a
+// four-chunk cp.async ring, three chunks in flight while one is multiplied.
+__global__ void __launch_bounds__(BTHREADS, 1)
 field_wgrad_kernel(const bf16* __restrict__ emb,   // (N_pad, 128)
                    const bf16* __restrict__ acts,  // (8, N_pad, 256)
                    const bf16* __restrict__ G,     // (8, N_pad, 256)
                    int n_pad, int rows_per_split,
                    float* __restrict__ partial) {  // (splits, packed weight size)
     extern __shared__ __align__(128) unsigned char smem[];
-    bf16* s_g = (bf16*)smem;
-    bf16* s_in = s_g + ROWS * LDG;
-    const int tid = threadIdx.x, warp = tid >> 5;
+    bf16* s_ring = (bf16*)smem;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int wo = warp >> 2, wk = warp & 3;
     int t = blockIdx.x, i = 0;
     while (t >= wgrad_tiles(i)) t -= wgrad_tiles(i++);
-    const int K = layer_k(i), nk = K / WG_K;
-    const int o0 = (t / nk) * WG_O, k0 = (t % nk) * WG_K;
+    const int K = layer_k(i), k0 = t * WG_TK;
     // this tile's input columns: the embedding, or the activation below
-    const bf16* src;
-    int lds, col;
+    const bf16* in;
+    int ldi, col;
     if (i == 0 || (i == SKIP_IN && k0 < EMB)) {
-        src = emb;
-        lds = EMB;
+        in = emb;
+        ldi = EMB;
         col = k0;
     } else {
-        src = acts + (size_t)(i == SKIP_IN ? SKIP_IN - 1 : i - 1) * n_pad * H;
-        lds = H;
+        in = acts + (size_t)(i == SKIP_IN ? SKIP_IN - 1 : i - 1) * n_pad * H;
+        ldi = H;
         col = i == SKIP_IN ? k0 - EMB : k0;
     }
     const bf16* g = G + (size_t)i * n_pad * H;
-
-    Acc acc[2];
-    wmma::fill_fragment(acc[0], 0.0f);
-    wmma::fill_fragment(acc[1], 0.0f);
-    const int r_begin = blockIdx.y * rows_per_split;
+    const int r_begin = min(n_pad, (int)blockIdx.y * rows_per_split);
     const int r_end = min(n_pad, r_begin + rows_per_split);
-    for (int r0 = r_begin; r0 < r_end; r0 += ROWS) {
-        __syncthreads();
-        copy_rows<true>(s_g, LDG, (bf16*)g + (size_t)r0 * H + o0, H, WG_O, tid);
-        copy_rows<true>(s_in, LDI, (bf16*)src + (size_t)r0 * lds + col, lds, WG_K, tid);
-        __syncthreads();
+    const int chunks = (r_end - r_begin) / WG_CHUNK;
+
+    auto load_chunk = [&](int c) {
+        bf16* sg = s_ring + (c % WG_STAGES) * WG_CHUNK * (LDGW + LDIW);
+        bf16* si = sg + WG_CHUNK * LDGW;
+        const size_t r0 = (size_t)r_begin + (size_t)c * WG_CHUNK;
+        for (int e = tid; e < WG_CHUNK * (H / 8); e += BTHREADS) {
+            const int r = e / (H / 8), cc = (e % (H / 8)) * 8;
+            cp_async16(sg + r * LDGW + cc, g + (r0 + r) * H + cc);
+        }
+        for (int e = tid; e < WG_CHUNK * (WG_TK / 8); e += BTHREADS) {
+            const int r = e / (WG_TK / 8), cc = (e % (WG_TK / 8)) * 8;
+            cp_async16(si + r * LDIW + cc, in + (r0 + r) * ldi + col + cc);
+        }
+    };
+
+    float acc[4][4][4];
+    zero_acc(acc);
 #pragma unroll
-        for (int kk = 0; kk < ROWS; kk += 16) {
-            // A(o, r) = g[r][o]: the stored gradient read column-major
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-            wmma::load_matrix_sync(a, s_g + kk * LDG + warp * 16, LDG);
+    for (int c = 0; c < WG_STAGES - 1; ++c) {
+        if (c < chunks) load_chunk(c);
+        cp_async_commit();
+    }
+#pragma unroll 1
+    for (int c = 0; c < chunks; ++c) {
+        cp_async_wait<WG_STAGES - 2>();
+        __syncthreads();  // chunk c in place for every thread; chunk c - 1 read by every warp
+        if (c + WG_STAGES - 1 < chunks) load_chunk(c + WG_STAGES - 1);
+        cp_async_commit();
+        const bf16* sg = s_ring + (c % WG_STAGES) * WG_CHUNK * (LDGW + LDIW);
+        const bf16* si = sg + WG_CHUNK * LDGW;
 #pragma unroll
-            for (int f = 0; f < 2; ++f) {
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-                wmma::load_matrix_sync(b, s_in + kk * LDI + f * 16, LDI);
-                wmma::mma_sync(acc[f], a, b, acc[f]);
+        for (int kk = 0; kk < WG_CHUNK; kk += 16) {
+            uint32_t b[4][2];
+#pragma unroll
+            for (int np = 0; np < 2; ++np) {
+                uint32_t r[4];
+                ldsm_x4_t(r, si + (kk + (lane & 15)) * LDIW + wk * 32 + np * 16 + (lane >> 4) * 8);
+                b[2 * np][0] = r[0];
+                b[2 * np][1] = r[1];
+                b[2 * np + 1][0] = r[2];
+                b[2 * np + 1][1] = r[3];
+            }
+#pragma unroll
+            for (int mt = 0; mt < 4; ++mt) {
+                // A(o, r) = G[r][o]: the stored rows read transposed
+                uint32_t a[4];
+                ldsm_x4_t(a, sg + (kk + (lane & 7) + ((lane >> 4) << 3)) * LDGW + wo * 64 + mt * 16 +
+                                 ((lane >> 3) & 1) * 8);
+#pragma unroll
+                for (int nt = 0; nt < 4; ++nt) mma16816(acc[mt][nt], a, b[nt][0], b[nt][1]);
             }
         }
     }
-    float* out = partial + (size_t)blockIdx.y * layer_off(DEPTH) + layer_off(i) + (size_t)(o0 + warp * 16) * K + k0;
-    wmma::store_matrix_sync(out, acc[0], K, wmma::mem_row_major);
-    wmma::store_matrix_sync(out + 16, acc[1], K, wmma::mem_row_major);
+    cp_async_wait<0>();
+    float* out = partial + (size_t)blockIdx.y * layer_off(DEPTH) + layer_off(i) + k0;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                const int o = wo * 64 + mt * 16 + (lane >> 2) + 8 * hf;
+                const int kc = wk * 32 + nt * 8 + (lane & 3) * 2;
+                *(float2*)(out + (size_t)o * K + kc) = make_float2(acc[mt][nt][2 * hf], acc[mt][nt][2 * hf + 1]);
+            }
 }
 
 bool valid_lanes(int src, int xl, int tl) {
@@ -527,12 +742,11 @@ cudaError_t launch_fwd(const void* x, int n, int src, int xl, const void* trow, 
 
 template <bool HEADS>
 cudaError_t launch_dgrad(const void* x, int n, int src, int xl, const void* dout, const void* wpack, const void* hw,
-                         const void* acts, int n_pad, void* G, void* dbias, void* dhw, void* dhb, void* demb_sum,
-                         void* dx, cudaStream_t stream) {
+                         const void* acts, int n_pad, void* G, void* small, void* dx, cudaStream_t stream) {
     cudaFuncSetAttribute(field_dgrad_kernel<HEADS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DGRAD_SMEM);
-    field_dgrad_kernel<HEADS><<<n_pad / ROWS, THREADS, DGRAD_SMEM, stream>>>(
+    field_dgrad_kernel<HEADS><<<n_pad / BROWS, BTHREADS, DGRAD_SMEM, stream>>>(
         (const float*)x, n, src, xl, (const float*)dout, (const bf16*)wpack, (const float*)hw, (const bf16*)acts,
-        n_pad, (bf16*)G, (float*)dbias, (float*)dhw, (float*)dhb, (float*)demb_sum, (float*)dx);
+        n_pad, (bf16*)G, (float*)small, (float*)dx);
     return cudaGetLastError();
 }
 
@@ -556,30 +770,41 @@ extern "C" int field_fwd(int heads, const void* x, int n, int src, int xl, const
                        : launch_fwd<false>(x, n, src, xl, trow, tl, wpack, bias, hw, hb, out, emb_out, acts_out, n_pad, s));
 }
 
-// heads != 0: dout is dy (N, 13) and hw, dhw, dhb are the heads'; heads ==
-// 0: dout is dh (N, 256) and those three are not touched. src == 0 (xl == 0,
-// heads == 0): dx receives d emb (N, 128) and demb_sum is not touched.
+extern "C" int field_bwd_rows() { return BROWS; }
+extern "C" int field_bwd_small() { return SMALL; }
+
+// heads != 0: dout is dy (N, 13) and hw the heads' weights; heads == 0: dout
+// is dh (N, 256), hw is not read and the heads' sums are zeros. src == 0
+// (xl == 0, heads == 0): dx receives d emb (N, 128) and the d emb row sums are
+// zeros. n_pad is a multiple of field_bwd_rows(). Outputs: G (8, n_pad, 256)
+// bf16; small (n_pad / field_bwd_rows(), field_bwd_small()) f32, each
+// block's d bias, d head_w, d head_b and d emb row sums; dx; partial
+// (splits, packed size) f32, each split's share of the weight gradients.
+// parts: 1 the data-gradient walk, 2 the weight-gradient pass (from G), 3 both.
 extern "C" int field_bwd(int heads, const void* x, int n, int src, int xl, const void* dout, const void* wpack,
                          const void* hw, const void* emb, const void* acts, int n_pad, int splits, void* G,
-                         void* dbias, void* dhw, void* dhb, void* demb_sum, void* dx, void* partial, void* stream) {
-    // no early exit at n == 0: every split of the weight-gradient partials
-    // is written (zeros then), since the wrapper sums them
-    if (!valid_lanes(src, xl, 0) || (heads && src == 0) || n_pad % ROWS != 0 || n_pad < n || n_pad == 0 ||
-        splits < 1)
+                         void* small, void* dx, void* partial, int parts, void* stream) {
+    // no early exit at n == 0: every block's sums and every split of the
+    // weight-gradient partials are written (zeros then), since the wrapper sums them
+    if (!valid_lanes(src, xl, 0) || (heads && src == 0) || n_pad % BROWS != 0 || n_pad < n || n_pad == 0 ||
+        splits < 1 || parts < 1 || parts > 3)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t err = heads ? launch_dgrad<true>(x, n, src, xl, dout, wpack, hw, acts, n_pad, G, dbias, dhw, dhb,
-                                                 demb_sum, dx, s)
-                            : launch_dgrad<false>(x, n, src, xl, dout, wpack, hw, acts, n_pad, G, dbias, dhw, dhb,
-                                                  demb_sum, dx, s);
-    if (err != cudaSuccess) return (int)err;
-    int tiles = 0;
-    for (int i = 0; i < DEPTH; ++i) tiles += wgrad_tiles(i);
-    const int chunks = n_pad / ROWS;
-    const int rows_per_split = ((chunks + splits - 1) / splits) * ROWS;
-    dim3 grid(tiles, splits);
-    field_wgrad_kernel<<<grid, THREADS, WGRAD_SMEM, s>>>((const bf16*)emb, (const bf16*)acts, (const bf16*)G, n_pad,
-                                                         rows_per_split, (float*)partial);
+    if (parts & 1) {
+        cudaError_t err = heads ? launch_dgrad<true>(x, n, src, xl, dout, wpack, hw, acts, n_pad, G, small, dx, s)
+                                : launch_dgrad<false>(x, n, src, xl, dout, wpack, hw, acts, n_pad, G, small, dx, s);
+        if (err != cudaSuccess) return (int)err;
+    }
+    if (parts & 2) {
+        int tiles = 0;
+        for (int i = 0; i < DEPTH; ++i) tiles += wgrad_tiles(i);
+        const int chunks = n_pad / WG_CHUNK;
+        const int rows_per_split = ((chunks + splits - 1) / splits) * WG_CHUNK;
+        cudaFuncSetAttribute(field_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WGRAD_SMEM);
+        dim3 grid(tiles, splits);
+        field_wgrad_kernel<<<grid, BTHREADS, WGRAD_SMEM, s>>>((const bf16*)emb, (const bf16*)acts, (const bf16*)G,
+                                                              n_pad, rows_per_split, (float*)partial);
+    }
     return (int)cudaGetLastError();
 }
 

@@ -50,10 +50,25 @@ SKIP_IN = 5  # the layer that takes [emb | h_4]
 EMB = 128  # embedding lanes: the source lanes, the time lanes, zero padding
 MAX_SOURCES = 2
 NOUT = 13  # packed head lanes: w (3) | v (3) | rotation (4) | scaling (3)
-ROWS = 64  # rows of one kernel block; row counts are padded to a multiple
+# Rows of one data-gradient block; row counts are padded to a multiple (the
+# forward's 64-row blocks divide it).
+ROWS = 128
 # Shares of the rows over which the weight-gradient kernel splits its sums
-# (the wrapper adds the shares in order); enough blocks for 132 SMs.
+# (the wrapper adds the shares in order): 16 tiles x 8 shares, one block an
+# SM, one wave on 132 SMs. Each share is a multiple of WGRAD_CHUNK rows.
 WGRAD_SPLITS = 8
+WGRAD_CHUNK = 64
+WGRAD_TILE_K = 128  # input columns of one weight-gradient tile (all 256 outputs)
+# Each data-gradient block's f32 sums, one row of a scratch the wrapper adds
+# in a fixed order: d bias (8, 256), d head_w (13, 256), d head_b (13,), the
+# row sum of d emb (128,).
+SMALL_DHW = DEPTH * H
+SMALL_DHB = SMALL_DHW + NOUT * H
+SMALL_DEMB = SMALL_DHB + NOUT
+SMALL = SMALL_DEMB + EMB
+# The backward's launches (the `parts` of `launch_bwd`): the data-gradient
+# walk, and the weight-gradient pass that reads its G.
+DGRAD_PART, WGRAD_PART = 1, 2
 
 # Kernel launches by kernel name. Each wrapper adds one where it launches its
 # kernel and nowhere else; `chip_smoke.py` zeroes and reads it.
@@ -89,12 +104,14 @@ def _kernel(name: str):
         if name == "field_fwd":
             fn.argtypes = [I, P, I, I, I, P, I] + [P] * 7 + [I, P]
         else:
-            fn.argtypes = [I, P, I, I, I] + [P] * 5 + [I, I] + [P] * 8
+            fn.argtypes = [I, P, I, I, I] + [P] * 5 + [I, I] + [P] * 4 + [I, P]
         fn.restype = ctypes.c_int
         size = lib.field_packed_size
         size.restype = ctypes.c_long
         if size() != OFFSETS[-1]:
             raise RuntimeError(f"deform_field.cu packs {size()} weights, this module {OFFSETS[-1]}")
+        if lib.field_bwd_rows() != ROWS or lib.field_bwd_small() != SMALL:
+            raise RuntimeError("deform_field.cu's backward block or sums differ from this module's")
         err = lib.field_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
@@ -198,33 +215,52 @@ def _launch_fwd(heads, x, t_row, wpack, bias, head_w, head_b, sources, x_lanes, 
     return (emb, acts) if save else None
 
 
-def _launch_bwd(heads, x, dout, wpack, head_w, emb, acts, sources, x_lanes):
-    """One `field_bwd` launch (data-gradient walk, then weight-gradient
-    tiles). Returns (dx, d emb row sum, packed dW, d bias, d head_w, d head_b),
-    the last two None without heads; without sources (x None) dx is d emb
-    (N, 128)."""
-    dev = dout.device
-    n = dout.shape[0]
+def bwd_buffers(n: int, sources: int, device) -> dict:
+    """The backward's outputs and scratch, uninitialized (the kernels write
+    every element): G (8, N_pad, 256) bf16, each layer's bf16(g); small
+    (N_pad / ROWS, SMALL) f32, each data-gradient block's sums; dx (N, 3 S),
+    or d emb (N, 128) without sources; partial (splits, packed size) f32,
+    each share of the rows' weight gradients."""
     n_pad = _padded_rows(n)
-    f32 = dict(dtype=torch.float32, device=dev)
-    G = torch.empty((DEPTH, n_pad, H), dtype=torch.bfloat16, device=dev)
-    dbias = torch.zeros((DEPTH, H), **f32)
-    dhw = torch.zeros((NOUT, H), **f32) if heads else None
-    dhb = torch.zeros((NOUT,), **f32) if heads else None
-    demb = torch.zeros((EMB,), **f32)
-    dx = torch.empty((n, 3 * sources if sources else EMB), **f32)  # d emb itself without sources
-    splits = max(1, min(WGRAD_SPLITS, n_pad // ROWS))
-    partial = torch.empty((splits, OFFSETS[-1]), **f32)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "G": torch.empty((DEPTH, n_pad, H), dtype=torch.bfloat16, device=device),
+        "small": torch.empty((n_pad // ROWS, SMALL), **f32),
+        "dx": torch.empty((n, 3 * sources if sources else EMB), **f32),
+        "partial": torch.empty((max(1, min(WGRAD_SPLITS, n_pad // WGRAD_CHUNK)), OFFSETS[-1]), **f32),
+    }
+
+
+def launch_bwd(heads, x, dout, wpack, head_w, emb, acts, sources, x_lanes, bufs: dict,
+               parts: int = DGRAD_PART | WGRAD_PART):
+    """Launch `field_bwd`'s data-gradient walk and/or weight-gradient pass
+    (`parts`) on checked CUDA inputs and `bwd_buffers`' tensors; no launch
+    count (the wrappers count whole backward calls)."""
+    n = dout.shape[0]
     fn, err = _kernel("field_bwd")
     rc = fn(
         int(heads), x.data_ptr() if x is not None else None, n, sources, x_lanes, dout.data_ptr(), wpack.data_ptr(),
-        head_w.data_ptr() if heads else None, emb.data_ptr(), acts.data_ptr(), n_pad, splits, G.data_ptr(),
-        dbias.data_ptr(), dhw.data_ptr() if heads else None, dhb.data_ptr() if heads else None, demb.data_ptr(),
-        dx.data_ptr(), partial.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        head_w.data_ptr() if heads else None, emb.data_ptr(), acts.data_ptr(), _padded_rows(n),
+        bufs["partial"].shape[0], bufs["G"].data_ptr(), bufs["small"].data_ptr(), bufs["dx"].data_ptr(),
+        bufs["partial"].data_ptr(), parts, torch.cuda.current_stream(dout.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"field_bwd launch failed: {err(rc).decode()} (cudaError {rc})")
-    return dx, demb, partial.sum(0), dbias, dhw, dhb
+
+
+def _launch_bwd(heads, x, dout, wpack, head_w, emb, acts, sources, x_lanes):
+    """One `field_bwd` call (data-gradient walk, then weight-gradient
+    tiles); the per-block sums and the shares of the weight gradients are
+    added in a fixed order. Returns (dx, d emb row sum, packed dW, d bias,
+    d head_w, d head_b), the last two None without heads; without sources
+    (x None) dx is d emb (N, 128)."""
+    bufs = bwd_buffers(dout.shape[0], sources, dout.device)
+    launch_bwd(heads, x, dout, wpack, head_w, emb, acts, sources, x_lanes, bufs)
+    sums = bufs["small"].sum(0)
+    dbias = sums[:SMALL_DHW].view(DEPTH, H)
+    dhw = sums[SMALL_DHW:SMALL_DHB].view(NOUT, H) if heads else None
+    dhb = sums[SMALL_DHB:SMALL_DEMB] if heads else None
+    return bufs["dx"], sums[SMALL_DEMB:], bufs["partial"].sum(0), dbias, dhw, dhb
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +350,7 @@ def deform_field_fwd(
 ):
     """Returns y (N, 13) f32 and, with `save`, the backward's inputs: the
     bf16 embedding (N_pad, 128) and activations (8, N_pad, 256), rows padded
-    to a multiple of 64 (the padded rows hold x = 0)."""
+    to a multiple of 128 (the padded rows hold x = 0)."""
     n = x.shape[0]
     dev = x.device
     _check_lanes(1, x_lanes, t_row.shape[0])
@@ -450,7 +486,7 @@ def field_trunk_fwd(
 ):
     """Returns h (N, 256) bf16, the trunk's last activation, and with `save`
     the backward's inputs: the bf16 embedding (N_pad, 128) and activations
-    (8, N_pad, 256), rows padded to a multiple of 64 (the padded rows hold
+    (8, N_pad, 256), rows padded to a multiple of 128 (the padded rows hold
     x = 0). With `save`, h is a view of the last activation, written once."""
     n = xsrc.shape[0]
     dev = xsrc.device
@@ -577,7 +613,7 @@ def trunk_fwd(
 ):
     """Returns h (N, 256) bf16, the trunk's last activation, and with `save`
     the backward's inputs: the bf16 embedding (N_pad, 128) and activations
-    (8, N_pad, 256), rows padded to a multiple of 64 (zero embedding rows).
+    (8, N_pad, 256), rows padded to a multiple of 128 (zero embedding rows).
     With `save`, h is a view of the last activation, written once."""
     n = inp.shape[0]
     dev = inp.device

@@ -11,9 +11,14 @@ with padded (tiles, pixels, K) tensors.
 `rasterize_tiles_bwd` is its backward: one gradient row per intersection
 (d means2d, d conic, d opacity, the AbsGS absgrad |sum over the tile of
 d means2d|, d colors). On a CUDA tensor it launches `csrc/rasterize_bwd.cu`
-(the port of `rasterize_pallas.py:_bwd_kernel_rev`) or raises; on a CPU
-tensor it runs `rasterize_tiles_bwd_plain`, autograd through the plain
-forward with respect to the gathered per-intersection rows.
+(the port of `rasterize_pallas.py:_bwd_kernel_rev`: a walk per 16 x 16
+quadrant of each tile into a scratch, then a combine that adds the
+quadrants in order) or raises; on a CPU tensor it runs
+`rasterize_tiles_bwd_plain`, autograd through the plain forward with
+respect to the gathered per-intersection rows.
+`rasterize_tiles_bwd_quadrants_plain` is a plain model of the kernels'
+design (`quadrant_partials_plain`, then `combine_quadrants_plain`), which
+the tests hold to both.
 `rasterize_tiles_bwd_fwd` computes the same rows by the forward walk (the
 port of `rasterize_pallas.py:_bwd_kernel`, kernel `rasterize_bwd_fwd` of
 `csrc/rasterize_bwd.cu`) from the per-pixel totals r_total; `BWD_WALK`
@@ -58,11 +63,17 @@ KERNEL_SOURCES = ("rasterize_fwd", "rasterize_bwd")
 BWD_WALK = "rev"
 
 # (source, ctypes argument layout) of each kernel's C entry point
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_BWD_ARGS = [_P] * 11 + [_I] * 8 + [_P, _P, _I, _P]
 _ENTRIES = {
-    "rasterize_fwd": ("rasterize_fwd", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5),
-    "rasterize_bwd": ("rasterize_bwd", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2),
-    "rasterize_bwd_fwd": ("rasterize_bwd", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2),
+    "rasterize_fwd": ("rasterize_fwd", [_P] * 7 + [_I] * 7 + [_P] * 5),
+    "rasterize_bwd": ("rasterize_bwd", _BWD_ARGS),
+    "rasterize_bwd_fwd": ("rasterize_bwd", _BWD_ARGS),
 }
+# The backward's launches (the `parts` of `launch_bwd`): the quadrant walk,
+# which writes per-quadrant partial sums to a scratch, and the combine,
+# which adds them in quadrant order and writes the rows.
+BWD_WALK_PART, BWD_COMBINE_PART = 1, 2
 _fns: dict = {}
 
 
@@ -201,7 +212,7 @@ def _bwd(name, means2d, conics, colors, opacities, radii, gauss_ids, tile_offset
     """Check the backward's inputs and launch kernel `name` (`pixel_in` is
     t_final for the reverse walk, r_total for the forward walk); on CPU
     tensors, run the plain version, the same function for both walks."""
-    C, tiles_w, tiles_h = _check_inputs(
+    C, _, _ = _check_inputs(
         means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets, width, height, tile_size
     )
     dev = means2d.device
@@ -218,20 +229,44 @@ def _bwd(name, means2d, conics, colors, opacities, radii, gauss_ids, tile_offset
             width, height, tile_size,
         )
 
+    rows, scratch = bwd_buffers(gauss_ids.shape[0], C, tile_size, dev)
+    launch_bwd(name, means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets, livecnt, pixel_in,
+               g_color, g_alpha, width, height, tile_size, rows, scratch)
+    LAUNCHES[name] += 1
+    return rows
+
+
+def quadrants(tile_size: int) -> int:
+    """16 x 16 quadrants of one kernel tile: the backward's blocks per tile."""
+    return (tile_size // CONTRACT_TILE) ** 2
+
+
+def bwd_buffers(num_isects: int, C: int, tile_size: int, device):
+    """The backward's output rows (I, 8 + C) and its per-quadrant scratch
+    (Q, I, 6 + C), both f32 and uninitialized: the kernels write every element."""
+    f32 = dict(dtype=torch.float32, device=device)
+    rows = torch.empty((num_isects, GRAD_ROW_HEAD + C), **f32)
+    return rows, torch.empty((quadrants(tile_size), num_isects, 6 + C), **f32)
+
+
+def launch_bwd(name, means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets, livecnt, pixel_in,
+               g_color, g_alpha, width, height, tile_size, rows, scratch,
+               parts: int = BWD_WALK_PART | BWD_COMBINE_PART):
+    """Launch kernel `name`'s quadrant walk and/or combine (`parts`) on
+    checked CUDA inputs and `bwd_buffers`' tensors; no launch count (the
+    wrappers count whole backward calls)."""
     fn, err = _kernel(name)
-    rows = torch.empty((gauss_ids.shape[0], GRAD_ROW_HEAD + C), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    tiles_w, tiles_h = -(-width // tile_size), -(-height // tile_size)
     rc = fn(
         means2d.data_ptr(), conics.data_ptr(), opacities.data_ptr(), colors.data_ptr(),
         radii.data_ptr(), gauss_ids.data_ptr(), tile_offsets.data_ptr(),
         g_color.data_ptr(), g_alpha.data_ptr(), livecnt.data_ptr(), pixel_in.data_ptr(),
-        C, width, height, tile_size, tiles_w, tiles_h, int(tile_size != CONTRACT_TILE),
-        rows.data_ptr(), stream,
+        colors.shape[1], width, height, tile_size, tiles_w, tiles_h, int(tile_size != CONTRACT_TILE),
+        gauss_ids.shape[0], rows.data_ptr(), scratch.data_ptr(), parts,
+        torch.cuda.current_stream(rows.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {err(rc).decode()} (cudaError {rc})")
-    LAUNCHES[name] += 1
-    return rows
 
 
 def _sequential_cumprod(x: torch.Tensor) -> torch.Tensor:
@@ -377,6 +412,72 @@ def rasterize_tiles_bwd_plain(
         d_rows = torch.zeros_like(rows)
     d_rows = d_rows.detach()
     return torch.cat([d_rows[:, :6], d_rows[:, :2].abs(), d_rows[:, 6 : 6 + C]], dim=1)
+
+
+def rasterize_tiles_bwd_quadrants_plain(
+    means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets, g_color, g_alpha,
+    width: int, height: int, tile_size: int,
+) -> torch.Tensor:
+    """Plain PyTorch model of the kernels' design, `rasterize_tiles_bwd`'s
+    function by way of per-quadrant partials: `quadrant_partials_plain`,
+    then `combine_quadrants_plain`."""
+    partials = quadrant_partials_plain(
+        means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets, g_color, g_alpha, width, height, tile_size
+    )
+    return combine_quadrants_plain(partials, opacities, gauss_ids)
+
+
+def quadrant_partials_plain(
+    means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets, g_color, g_alpha,
+    width: int, height: int, tile_size: int,
+) -> torch.Tensor:
+    """The quadrant walk's scratch (Q, I, 6 + C): for each 16 x 16 quadrant
+    of the kernel tiles (Q = 1 at tile 16, 4 at tile 32, in row-major order
+    within the tile), each slot's sums over the quadrant's pixels of d means2d
+    (2), d conic (3), dsigma (1) and d colors (C). Autograd through the plain
+    compositor with the cotangents of the other quadrants' pixels zeroed;
+    the dsigma sum is -op d opacity (d opacity = -sum dsigma / op)."""
+    C = colors.shape[1]
+    Q = quadrants(tile_size)
+    side = tile_size // CONTRACT_TILE
+    ids = gauss_ids.long()
+    rows = _slot_rows(means2d, conics, colors, opacities, gauss_ids).detach().requires_grad_(True)
+    out = torch.zeros((Q, rows.shape[0], 6 + C), dtype=torch.float32, device=means2d.device)
+    if rows.shape[0] == 0:
+        return out
+    with torch.enable_grad():
+        color, alpha, _, _ = _composite_plain(rows, radii[ids], tile_offsets, width, height, tile_size)
+    if not color.requires_grad:  # no pair reached any pixel
+        return out
+    ys = torch.arange(height, device=means2d.device)[:, None]
+    xs = torch.arange(width, device=means2d.device)[None, :]
+    quad = ((ys % tile_size) // CONTRACT_TILE) * side + (xs % tile_size) // CONTRACT_TILE  # (H, W)
+    op = opacities[ids]
+    for q in range(Q):
+        m = (quad == q).to(g_alpha.dtype)
+        (d,) = torch.autograd.grad(
+            (color, alpha), rows, (g_color * m[..., None], g_alpha * m), retain_graph=q < Q - 1, allow_unused=True
+        )
+        if d is None:
+            continue
+        d = d.detach()
+        out[q, :, :5] = d[:, :5]
+        out[q, :, 5] = -d[:, 5] * op
+        out[q, :, 6:] = d[:, 6 : 6 + C]
+    return out
+
+
+def combine_quadrants_plain(partials: torch.Tensor, opacities, gauss_ids) -> torch.Tensor:
+    """The combine: the Q partials (Q, I, 6 + C) added in quadrant order,
+    then d opacity = -sum / op and the absgrad |sum of d means2d| over the
+    whole kernel tile. Returns the rows (I, 8 + C)."""
+    s = partials[0]
+    for q in range(1, partials.shape[0]):
+        s = s + partials[q]
+    op = opacities[gauss_ids.long()]
+    live = (op > 0) & (s[:, 5] != 0)
+    d_op = torch.where(live, -s[:, 5] / torch.where(live, op, torch.ones_like(op)), torch.zeros_like(op))
+    return torch.cat([s[:, :5], d_op[:, None], s[:, :2].abs(), s[:, 6:]], dim=1)
 
 
 def reduce_rows_by_gid(

@@ -24,7 +24,10 @@ backward's budget against the plain version and the reverse walk's kernel on
 sparse and dense scenes (its suffix identity r_total - S cancels where the
 suffix is small next to the pixel's total, which a dense scene reaches), and
 its exactly-zero rows (slots past every pixel's termination) must be the
-reverse walk's, which reads the forward's own live counts.
+reverse walk's, which reads the forward's own live counts. At tile 32 the
+backward's quadrant walk is also held to the plain model of its per-quadrant
+partial sums (rtol 1e-3 / atol 1e-4). Both backwards add their partial sums
+in a fixed order, so two calls on the same inputs are compared bit for bit.
 """
 
 import numpy as np
@@ -277,20 +280,31 @@ def test_cuda_deform_bwd_matches_plain(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_deform_kernels_write_every_output_at_zero_rows(cuda_device):
-    """No points: the forward still writes its saved tensors' padded rows,
-    and the backward's weight gradients are exact zeros, whatever the freshly
+    """At 127, 128 and 129 points every output is written and right; at no
+    points the forward still writes its saved tensors' padded rows and the
+    backward's weight gradients are exact zeros, whatever the freshly
     allocated buffers held."""
-    args = _deform_inputs(cuda_device, 0, 5)
-    poison = torch.full((8, 1 << 20), float("nan"), device=cuda_device)
-    del poison  # the caching allocator hands this block to the wrappers' outputs
-    y, (emb, acts) = mlp_cuda.deform_field_fwd(*args, True)
-    assert y.shape == (0, 13) and torch.isfinite(emb).all() and torch.isfinite(acts).all()
-    dy = torch.zeros(0, 13, device=cuda_device)
-    got = mlp_cuda.deform_field_bwd(args[0], dy, args[2], args[4], emb, acts, args[6])
-    torch.cuda.synchronize()
-    assert got[0].shape == (0, 3)
-    for g in got[1:]:
-        assert torch.equal(g, torch.zeros_like(g))
+    for n in (127, 128, 129, 0):  # around the backward's 128-row block, and none
+        args = _deform_inputs(cuda_device, n, 5)
+        poison = torch.full((8, 1 << 20), float("nan"), device=cuda_device)
+        del poison  # the caching allocator hands this block to the wrappers' outputs
+        y, (emb, acts) = mlp_cuda.deform_field_fwd(*args, True)
+        assert y.shape == (n, 13) and torch.isfinite(y).all()
+        assert torch.isfinite(emb).all() and torch.isfinite(acts).all()
+        dy = torch.ones(n, 13, device=cuda_device)
+        poison = torch.full((8, 1 << 20), float("nan"), device=cuda_device)
+        del poison
+        got = mlp_cuda.deform_field_bwd(args[0], dy, args[2], args[4], emb, acts, args[6])
+        torch.cuda.synchronize()
+        assert got[0].shape == (n, 3) and all(torch.isfinite(g).all() for g in got)
+        if n == 0:
+            for g in got[1:]:
+                assert torch.equal(g, torch.zeros_like(g))
+        else:
+            want = mlp_cuda.deform_field_bwd_plain(args[0], dy, args[2], args[4], emb, acts, args[6])
+            for name, a, b in zip(("dx", "d_emb", "dW", "dbias", "dhead_w", "dhead_b"), got, want):
+                mx, nm = _rel(a, b)
+                assert mx <= 1e-2 and nm <= 1e-3, (n, name, mx, nm)
 
 
 @pytest.mark.cuda
@@ -382,10 +396,10 @@ def test_cuda_field_bwd_matches_plain(cuda_device, mode):
 def test_cuda_field_kernels_write_every_output(cuda_device, mode):
     """Every output row is written whatever the freshly allocated buffers
     held (the caching allocator hands the freed NaN block to the wrappers):
-    at 130 rows, the forward's h and saved tensors and the backward's
-    dxsrc; at no rows, the saved tensors' padded rows and exact-zero weight
-    gradients."""
-    for n in (130, 0):
+    at 127-130 rows (around the backward's 128-row block), the forward's h
+    and saved tensors and the backward's dxsrc; at no rows, the saved
+    tensors' padded rows and exact-zero weight gradients."""
+    for n in (127, 128, 129, 130, 0):
         args = _field_inputs(cuda_device, n, 23, mode)
         poison = torch.full((8, 1 << 20), float("nan"), device=cuda_device)
         del poison
@@ -526,8 +540,8 @@ def test_cuda_trunk_bwd_matches_plain(cuda_device):
 @pytest.mark.cuda
 def test_cuda_trunk_kernels_write_every_output(cuda_device):
     """Over a freed NaN-filled block: h, the saved tensors and d emb are
-    written in full at 130 rows; at no rows the weight gradients are zeros."""
-    for n in (130, 0):
+    written in full at 127-130 rows; at no rows the weight gradients are zeros."""
+    for n in (127, 128, 129, 130, 0):
         inp, wpack, bias = _trunk_inputs(cuda_device, n, 24)
         poison = torch.full((8, 1 << 20), float("nan"), device=cuda_device)
         del poison
@@ -564,3 +578,123 @@ def test_cuda_fused_trunk_gradients_match_cpu(cuda_device):
     for i, (a, b) in enumerate(zip(grads["cuda"], grads["cpu"])):
         _, nm = _rel(a, b)
         assert nm <= 3e-2, (i, nm)
+
+
+def _field_bwd_case(device, mode, n, seed):
+    """(backward function, its arguments) for one of the three modes of
+    `field_bwd`: "heads" (the deform field), "control" (two sources),
+    "trunk" (no sources), from the same saved tensors the forward wrote."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if mode == "heads":
+        args = _deform_inputs(device, n, seed)
+        _, (emb, acts) = mlp_cuda.deform_field_fwd(*args, True)
+        dy = torch.randn(n, 13, generator=g).to(device)
+        return mlp_cuda.deform_field_bwd, (args[0], dy, args[2], args[4], emb, acts, args[6])
+    dh = torch.randn(n, 256, generator=g).to(device).bfloat16().float()
+    if mode == "control":
+        args = _field_inputs(device, n, seed, "control")
+        _, (emb, acts) = mlp_cuda.field_trunk_fwd(*args, True)
+        return mlp_cuda.field_trunk_bwd, (args[0], dh, args[2], emb, acts, args[4], args[5])
+    inp, wpack, bias = _trunk_inputs(device, n, seed)
+    _, (emb, acts) = mlp_cuda.trunk_fwd(inp, wpack, bias, True)
+    return mlp_cuda.trunk_bwd, (dh, wpack, emb, acts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["heads", "control", "trunk"])
+def test_cuda_field_bwd_is_deterministic(cuda_device, mode):
+    """Two backward calls on the same inputs give the same bits: the block
+    sums and the weight-gradient shares are added in a fixed order."""
+    fn, args = _field_bwd_case(cuda_device, mode, 3000, 41)
+    first = fn(*args)
+    second = fn(*args)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), (mode, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["heads", "control", "trunk"])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 255, 257])
+def test_cuda_field_bwd_matches_plain_around_the_block(cuda_device, mode, n):
+    fn, args = _field_bwd_case(cuda_device, mode, n, n + 43)
+    plain = {mlp_cuda.deform_field_bwd: mlp_cuda.deform_field_bwd_plain, mlp_cuda.field_trunk_bwd: mlp_cuda.field_trunk_bwd_plain,
+             mlp_cuda.trunk_bwd: mlp_cuda.trunk_bwd_plain}[fn]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, plain(*args))):
+        assert a.shape == b.shape and torch.isfinite(a).all(), (mode, i)
+        if b.abs().max() > 0:
+            mx, nm = _rel(a, b)
+            assert mx <= 1e-2 and nm <= 1e-3, (mode, i, mx, nm)
+
+
+def _quadrant_scene(device, channels, seed, width=100, height=70):
+    """A ragged 100 x 70 frame at tile 32 (tiles of 4 x 3, the last column
+    with one quadrant outside the frame), a clustered background, and
+    Gaussians whose 16-px contract bboxes cover one quadrant (centered in
+    one), two (on a vertical quadrant boundary) and four (on a tile's
+    center) of their tiles."""
+    m, con, col, op, dep, rad = clustered_scene_2d(n=300, width=width, height=height, seed=seed, channels=channels)
+    rng = np.random.default_rng(seed)
+    centers = [(8 + 32 * i, 8 + 32 * j) for i in range(3) for j in range(2)]
+    centers += [(16 + 32 * i, 8 + 32 * j) for i in range(3) for j in range(2)]
+    centers += [(16 + 32 * i, 16 + 32 * j) for i in range(3) for j in range(2)]
+    k = len(centers)
+    extra = (
+        np.array(centers, np.float32), np.tile(np.array([[0.08, 0.0, 0.08]], np.float32), (k, 1)),
+        rng.uniform(size=(k, channels)).astype(np.float32), np.full(k, 0.7, np.float32),
+        rng.uniform(0.5, 6.0, size=k).astype(np.float32), np.full(k, 5, np.int32),
+    )
+    scene = [np.concatenate([a, e]) for a, e in zip((m, con, col, op, dep, rad), extra)]
+    m, con, col, op, dep, rad = [torch.tensor(a, device=device) for a in scene]
+    r = rad.float()
+    isect = build_intersections(m, r, dep, width, height, 32)
+    return (m, con, col, op, r, isect.gauss_ids, isect.tile_offsets, width, height, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", ["rev", "fwd"])
+@pytest.mark.parametrize("channels", [3, 5])
+def test_cuda_bwd_quadrants_match_plain(cuda_device, channels, walk):
+    """At tile 32, on a ragged frame with Gaussians covering 1, 2 and 4
+    quadrants: the quadrant walk's scratch against the plain model's
+    per-quadrant partials, and the rows against the plain backward, rtol
+    1e-3 / atol 1e-4; two calls give the same bits."""
+    args = _quadrant_scene(cuda_device, channels, channels + 50)
+    color, alpha, livecnt, t_final = rasterize_tiles(*args)
+    g_color, g_alpha = _cotangents(cuda_device, 100, 70, channels, channels + 51)
+    pixel_in = t_final if walk == "rev" else _r_total(color, alpha, g_color, g_alpha)
+    name = "rasterize_bwd" if walk == "rev" else "rasterize_bwd_fwd"
+    fwd = args[:7]
+    rows, scratch = rasterize_cuda.bwd_buffers(args[5].shape[0], channels, 32, cuda_device)
+    rasterize_cuda.launch_bwd(name, *fwd, livecnt, pixel_in, g_color, g_alpha, 100, 70, 32, rows, scratch,
+                              parts=rasterize_cuda.BWD_WALK_PART)
+    torch.cuda.synchronize()
+    partials = rasterize_cuda.quadrant_partials_plain(*fwd, g_color, g_alpha, 100, 70, 32)
+    torch.testing.assert_close(scratch, partials, rtol=1e-3, atol=1e-4)
+    covered = (partials.abs().sum(-1) > 0).sum(0)
+    assert {1, 2, 4} <= set(covered.tolist())
+    bwd = rasterize_tiles_bwd if walk == "rev" else rasterize_tiles_bwd_fwd
+    got = bwd(*fwd, livecnt, pixel_in, g_color, g_alpha, 100, 70, 32)
+    again = bwd(*fwd, livecnt, pixel_in, g_color, g_alpha, 100, 70, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = rasterize_tiles_bwd_plain(*fwd, g_color, g_alpha, 100, 70, 32)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(got, rasterize_cuda.combine_quadrants_plain(scratch, args[3], args[5]), rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size", [16, 32])
+def test_cuda_bwd_kernels_are_deterministic(cuda_device, tile_size):
+    """Both walks, two calls each on a dense scene: every row bit-equal."""
+    args = _inputs(cuda_device, 800, 100, 70, 5, 61, tile_size)
+    color, alpha, livecnt, t_final = rasterize_tiles(*args)
+    g_color, g_alpha = _cotangents(cuda_device, 100, 70, 5, 62)
+    r_total = _r_total(color, alpha, g_color, g_alpha)
+    for fn, pixel_in in ((rasterize_tiles_bwd, t_final), (rasterize_tiles_bwd_fwd, r_total)):
+        a = fn(*args[:7], livecnt, pixel_in, g_color, g_alpha, *args[7:])
+        b = fn(*args[:7], livecnt, pixel_in, g_color, g_alpha, *args[7:])
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
