@@ -7,30 +7,36 @@ Drives the port's stage-1 serving path (reference checkpoint ->
 (`make_train_step`: forward, loss, backward, Adam, densification), its
 stage-2 control path in the `deform_impl="pallas"` configuration (the
 slider viewer over a stage-2 checkpoint, and `make_control_train_step`),
-and the `train` and `train-control` CLI verbs over a dataset on disk, with
-every kernel built from this checkout. Phases, printed as each ends:
+the `train` and `train-control` CLI verbs over a dataset on disk, and the
+`viewer` verb over the checkpoints those verbs write, with every kernel
+built from this checkout. Phases, printed as each ends:
 
   1. device   the card's name and power limit, as nvidia-smi gives them
   2. build    nvcc builds every kernel source, one process per source, all
-              started together
+              started together; each kernel's registers, spills and static
+              shared memory from ptxas
   3. scene    a seeded synthetic scene at the bench.py operating point
               (100k Gaussians, SH degree 3, scales log(0.015), the 50/30/20
               opacity mixture, a full 8x256 deform field with heads x 0.01),
               written as a reference checkpoint and loaded back
   4. kernels  each kernel against its plain PyTorch version on the inputs
               the main paths give it (640x480; tiles 16 and 32): the
-              compositor at C = 3 and 4, its backward by both walks at C
+              compositor at C = 3 and 4 (livecnt and t_final bit for bit,
+              two calls bit-equal), its backward by both walks at C
               = 3 and 5 with seeded cotangents (the forward walk also on a
               sparse frame, every tenth Gaussian), the fused deform field's forward (100k
               means, the scene's weights and time row) and its backward
               with a seeded cotangent: max |diff|, elements outside the
-              budget, kernel and plain ms (CUDA events), and the least time
-              the card could take (the bound); each backward's two launches
+              budget, kernel and plain ms (CUDA events; the field forward in
+              training and serving modes), and the least time the card
+              could take (the bound); each backward's two launches
               timed apart (the compositor's quadrant walk and combine, the
               field's data-gradient walk and weight-gradient pass, with the
               bytes the latter moves at its tile sizes), and two calls of
-              each backward compared bit for bit
-  5. serve    the serving path: the HTTP viewer answers GET /render at
+              each backward compared bit for bit; the error of the
+              per-Gaussian reduction of the backward's rows (f32 prefix
+              sums) against a float64 sum at tile 32
+  5. serve    the serving path: the HTTP viewer answers GET /render (JPEG) at
               640x480 (tile 32), then at the native 1296x968 (tile 16 and
               32), each frame through the deform field's forward and the
               compositor; the launch counts are zeroed just before each
@@ -63,7 +69,8 @@ every kernel built from this checkout. Phases, printed as each ends:
  10. serve2   the stage-2 serving path: the slider viewer answers GET
               /render with non-zero sliders at 640x480 (tile 32); latency,
               and launches zeroed before the requests and read after (one
-              control-trunk forward and one compositor per request)
+              control-trunk forward and one compositor per request); three
+              times over, each with its host probe
  11. train2   the stage-2 training path: 12 steps of
               `make_control_train_step` against a seeded target; the loss of
               every step, the median step time and train_step_pixels_per_sec,
@@ -96,6 +103,13 @@ every kernel built from this checkout. Phases, printed as each ends:
               on the precomputed embedding) forward and backward, launches;
               the kernel pair against its plain versions, ms, bound, and the
               backward's launches as in phase 4
+ 18. viewer   the `viewer` verb in process (`cli.serve_viewer`) over the
+     verb     `train` verb's checkpoint directory (stage 1: `--data --load`)
+              and over the `train-control` verb's (stage 2:
+              `--stage1-checkpoint --gaussian-mask --load`): the served state
+              is the verb's last step, GET /render answers image/jpeg with
+              the JPEG of the trainer's own frame for that camera, and each
+              request launches the field forward and the compositor once
 
 Then one JSON line of kernel records and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -353,8 +367,8 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def host_probe_ms() -> float:
     """The host's speed, for reading the request latencies (host clocks):
-    the median ms of 5 PNG encodes of one seeded 640x480 frame, the host
-    work that takes most of a request."""
+    the median ms of 5 PNG encodes (zlib, on the host's CPU) of one seeded
+    640x480 frame, a fixed task whose readings compare across runs."""
     from freegaussian_tpu_torch.viewer.png import encode_png
 
     rng = np.random.default_rng(SEED)
@@ -510,14 +524,16 @@ def phase_device() -> str:
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
-    from freegaussian_tpu_torch.cuda_build import build
+    from freegaussian_tpu_torch.cuda_build import build, ptxas_report
 
     KERNEL_SOURCES = [name for m in kernel_modules() for name in m.KERNEL_SOURCES]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        took = list(pool.map(build, KERNEL_SOURCES))
-    for name, seconds in zip(KERNEL_SOURCES, took):
-        print(f"build: {name} ({'already built' if seconds is None else f'{seconds:.1f} s'}, sm_90a)")
+        built = list(pool.map(build, KERNEL_SOURCES))
+    for name, done in zip(KERNEL_SOURCES, built):
+        print(f"build: {name} ({'already built' if done is None else f'{done[0]:.1f} s'}, sm_90a)")
+        for line in ptxas_report(done[1]) if done else ():
+            print(f"build: ptxas {name}.cu {line}")
     print(f"build: all {len(KERNEL_SOURCES)} sources in {time.perf_counter() - t0:.1f} s")
 
 
@@ -583,12 +599,15 @@ def phase_kernels(model) -> dict:
             col = chans[:, :C].contiguous()
             args = (m2d, con, col, opac, radii, isect.gauss_ids, isect.tile_offsets, width, height, tile)
             got = rasterize_tiles(*args)
+            again = rasterize_tiles(*args)
             torch.cuda.synchronize()
             want = rasterize_tiles_plain(*args)
             torch.cuda.synchronize()
             err = max(float((a - b).abs().max()) for a, b in zip(got, want) if a.dtype == torch.float32)
             over = int(((got[0] - want[0]).abs().amax(-1) > 1e-6).sum())
             live_diff = int((got[2] != want[2]).sum())
+            tfinal_diff = int((got[3] != want[3]).sum())
+            bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
             if pairs16 is None:
                 pairs16 = int(got[2].long().sum())
             k_ms = cuda_ms(lambda: rasterize_tiles(*args), reps=25)
@@ -596,13 +615,17 @@ def phase_kernels(model) -> dict:
             bound_ms, bound_by = compositor_bound(n, C, isect.num_isects, isect.num_tiles, width * height, pairs16)
             row = dict(
                 tile=tile, C=C, num_isects=isect.num_isects, max_abs_err=err, pixels_over_1e6=over,
-                livecnt_mismatch=live_diff, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
+                livecnt_mismatch=live_diff, t_final_mismatch=tfinal_diff, bit_equal=bit_equal,
+                ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
             )
             print("kernel rasterize_fwd " + json.dumps(row))
             if not err <= KERNEL_ATOL:
                 raise AssertionError(f"kernel vs plain at tile {tile}, C={C}: max |diff| {err} > {KERNEL_ATOL}")
-            if live_diff:
-                raise AssertionError(f"kernel vs plain at tile {tile}, C={C}: livecnt differs at {live_diff} pixels")
+            if live_diff or tfinal_diff:
+                raise AssertionError(f"kernel vs plain at tile {tile}, C={C}: livecnt differs at {live_diff} pixels, "
+                                     f"t_final at {tfinal_diff}")
+            if not bit_equal:
+                raise AssertionError(f"rasterize_fwd at tile {tile}, C={C}: two calls on the same inputs differ")
             rows.append(row)
     print(f"kernel pairs evaluated (sum of livecnt at tile 16, {width}x{height}): {pairs16}; library_ms: null")
     bwd_rows = _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16)
@@ -642,9 +665,11 @@ def _check_deform(x, t_row, ws, bs, head_w, head_b) -> dict:
             n=n, y_max_rel=y_max, y_norm_rel=y_norm, max_abs_err=float((y - yp).abs().max()),
             emb_mismatch=int((emb != embp).sum()), act_mismatch=int((acts[:, :n] != actsp[:, :n]).sum()),
             ms=cuda_ms(lambda: mc.deform_field_fwd(*fargs), reps=25),
+            serve_ms=cuda_ms(lambda: mc.deform_field_fwd(*fargs[:-1], False), reps=25),
             plain_ms=cuda_ms(lambda: mc.deform_field_fwd_plain(*fargs), reps=5),
         )
         fwd["bound_ms"], fwd["bound_by"] = field_bound(n, in_ch, True, False, True)
+        fwd["serve_bound_ms"], fwd["serve_bound_by"] = field_bound(n, in_ch, False, False, True)
         print("kernel deform_fwd " + json.dumps(fwd))
         if not (torch.isfinite(y).all() and y_max <= DEFORM_OUT_MAX_REL and y_norm <= DEFORM_OUT_NORM_REL):
             raise AssertionError(f"deform_fwd vs plain: max rel {y_max}, norm rel {y_norm}")
@@ -745,6 +770,8 @@ def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16
                     )
                     if frame == "bench":
                         row.update(_bwd_parts(name, fwd_args, livecnt, args[8], g_color, g_alpha, width, height, tile, rows_k))
+                        if walk == "rev" and tile == 32 and C == 5:
+                            row["reduction"] = _reduction_error(rows_k, isect)
                     if walk == "fwd":
                         row["max_abs_diff_to_rev_kernel"] = float((rows_k - got).abs().max())
                         row["outside_budget_to_rev_kernel"] = budget(rows_k, got)[1]
@@ -772,6 +799,37 @@ def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16
     return rows
 
 
+def _reduction_error(rows, isect) -> dict:
+    """The per-Gaussian sum of the backward's rows as the step takes it
+    (`reduce_rows_by_gid`: an f32 prefix sum over the Gaussian-sorted rows
+    and differences at the group boundaries), and a plain f32 sum
+    (`index_add_`), each against a float64 sum of the same rows: the largest
+    error, the largest sum, the error relative to its own sum where that sum
+    exceeds 1e-3 of the largest, and the normwise error."""
+    import torch
+
+    from freegaussian_tpu_torch.ops.rasterize_cuda import reduce_rows_by_gid
+
+    ids = isect.gauss_ids.long()
+    n = int(isect.counts.shape[0])
+    ref = torch.zeros((n, rows.shape[1]), dtype=torch.float64, device=rows.device).index_add_(0, ids, rows.double())
+    scale = ref.abs()
+    above = scale > 1e-3 * float(scale.max())
+    out = {"num_isects": int(ids.shape[0]), "max_abs_f64": float(scale.max())}
+    sums = {
+        "prefix": reduce_rows_by_gid(rows, isect.gauss_ids, isect.offsets, isect.counts),
+        "index_add_f32": torch.zeros((n, rows.shape[1]), dtype=torch.float32, device=rows.device).index_add_(0, ids, rows),
+    }
+    for name, got in sums.items():
+        diff = (got.double() - ref).abs()
+        out[name] = {
+            "max_abs_err": float(diff.max()), "max_rel_err_where_above_1e-3": float((diff / scale)[above].max()),
+            "norm_rel_err": float(diff.norm() / ref.norm()),
+        }
+    print("reduction (tile 32, C 5, bench frame) " + json.dumps(out))
+    return out
+
+
 def _bwd_parts(name, fwd_args, livecnt, pixel_in, g_color, g_alpha, width, height, tile, rows_k) -> dict:
     """The compositor backward's two launches timed apart (CUDA events,
     median of 25: the quadrant walk into the scratch, then the combine into
@@ -793,6 +851,29 @@ def _bwd_parts(name, fwd_args, livecnt, pixel_in, g_color, g_alpha, width, heigh
     )
 
 
+def query(views, i, atrb=None) -> str:
+    """The GET /render path of view i, with the attribute sliders `atrb`."""
+    th, ph, r, t = views[i]
+    q = f"/render?th={th}&ph={ph}&r={r}&t={t}"
+    return q if atrb is None else q + "&atrb=" + ",".join(f"{v:g}" for v in np.ravel(atrb))
+
+
+def check_frame(status, ctype, body, width: int, height: int, min_colors: int = 100) -> np.ndarray:
+    """A /render answer: 200, image/jpeg, a JPEG of the frame's size that
+    is not a constant frame (more than `min_colors` distinct colors).
+    Returns the decoded (H, W, 3) uint8 frame."""
+    import io
+
+    from PIL import Image
+
+    assert status == 200 and ctype == "image/jpeg", (status, ctype)
+    img = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+    assert img.shape == (height, width, 3), img.shape
+    colors = len(np.unique(img.reshape(-1, 3), axis=0))
+    assert img.std() > 1.0 and colors > min_colors, f"constant frame: std {img.std()}, {colors} colors"
+    return img
+
+
 def _serve(render_fn, width: int, height: int, views, label: str, per_request: dict, num_attributes: int = 0,
            atrbs=None):
     """Start a viewer over `render_fn`, GET /render for each view (with the
@@ -802,24 +883,14 @@ def _serve(render_fn, width: int, height: int, views, label: str, per_request: d
     count) and nothing else. With sliders, one more request (after the
     counts are read) at the first view with the sliders at zero must give
     another frame. Returns (request latencies in ms, launches)."""
-    from freegaussian_tpu_torch.viewer.png import decode_png
     from freegaussian_tpu_torch.viewer.server import ViewerServer
 
-    def query(i, atrb):
-        th, ph, r, t = views[i]
-        q = f"/render?th={th}&ph={ph}&r={r}&t={t}"
-        return q if atrb is None else q + "&atrb=" + ",".join(f"{v:g}" for v in np.ravel(atrb))
-
     def get_frame(path):
-        """(frame, PNG bytes, the request's ms: to its last byte, before the decode)."""
+        """(frame, JPEG bytes, the request's ms: to its last byte, before the decode)."""
         t0 = time.perf_counter()
         status, ctype, body = http_get(server.port, path)
         ms = (time.perf_counter() - t0) * 1e3
-        assert status == 200 and ctype == "image/png", (status, ctype)
-        img = decode_png(body)
-        assert img.shape == (height, width, 3), img.shape
-        assert img.std() > 1.0 and len(np.unique(img.reshape(-1, 3), axis=0)) > 100, "constant frame"
-        return img, len(body), ms
+        return check_frame(status, ctype, body, width, height), len(body), ms
 
     server = ViewerServer(
         render_fn, num_attributes=num_attributes, width=width, height=height, port=0, host="127.0.0.1", device=DEVICE
@@ -833,15 +904,15 @@ def _serve(render_fn, width: int, height: int, views, label: str, per_request: d
         zero_launches()
         for i in range(len(views)):
             before = sum(launches().values())
-            img, size, ms = get_frame(query(i, None if atrbs is None else atrbs[i]))
+            img, size, ms = get_frame(query(views, i, None if atrbs is None else atrbs[i]))
             launched = sum(launches().values()) - before
             assert launched == sum(per_request.values()), f"{launched} kernel launches for one request, want {per_request}"
             latencies.append(ms)
             frames.append(img)
-            print(f"serve {label} {width}x{height} {query(i, None if atrbs is None else atrbs[i])}: 200 image/png {size} B in {ms:.1f} ms")
+            print(f"serve {label} {width}x{height} {query(views, i, None if atrbs is None else atrbs[i])}: 200 image/jpeg {size} B in {ms:.1f} ms")
         counts = launches()
         if atrbs is not None:
-            still = get_frame(query(0, np.zeros_like(atrbs[0])))[0]
+            still = get_frame(query(views, 0, np.zeros_like(atrbs[0])))[0]
             changed = float(np.mean(np.any(still != frames[0], axis=-1)))
             print(f"serve {label}: the sliders change {changed:.1%} of the first view's pixels")
             assert changed > 0.001, "the sliders do not move the render"
@@ -1208,22 +1279,31 @@ def _check_field(mode, x, value, t_row, ws, bs) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
+SERVE2_REPEATS = 3
+
+
 def phase_serve2(model2) -> dict:
     """The stage-2 serving path: the slider viewer over the stage-2 model at
     640x480 (tile 32), GET /render with non-zero sliders; each request runs
-    the control trunk and the compositor once."""
+    the control trunk and the compositor once. SERVE2_REPEATS servers in a
+    row, each with its host probe (one earlier run read 554-620 ms requests
+    here, which no later run has shown). Launches: the first server's."""
     from freegaussian_tpu_torch.viewer.server import control_render_fn
 
     w, h = SERVE_WH
-    lat, counts = _serve(
-        control_render_fn(model2), w, h, VIEWS, "stage2", {"rasterize_fwd": 1, "field_fwd": 1},
-        num_attributes=model2.num_attributes, atrbs=SLIDERS,
-    )
-    print(
-        f"serve stage2 ({w}x{h} tile {model2.cfg.tile_size}, sliders): {len(lat)} requests, launches "
-        f"{json.dumps(counts)}, latency first {lat[0]:.1f} ms, median of the rest {statistics.median(lat[1:]):.1f} ms"
-    )
-    return {"latency_ms": lat, "launches": counts}
+    runs = []
+    for rep in range(SERVE2_REPEATS):
+        lat, counts = _serve(
+            control_render_fn(model2), w, h, VIEWS, "stage2", {"rasterize_fwd": 1, "field_fwd": 1},
+            num_attributes=model2.num_attributes, atrbs=SLIDERS,
+        )
+        runs.append((lat, counts))
+        print(
+            f"serve stage2 ({w}x{h} tile {model2.cfg.tile_size}, sliders) run {rep}: {len(lat)} requests, launches "
+            f"{json.dumps(counts)}, latency first {lat[0]:.1f} ms, median of the rest {statistics.median(lat[1:]):.1f} ms, "
+            f"max {max(lat):.1f} ms"
+        )
+    return {"latency_ms": [lat for lat, _ in runs], "launches": runs[0][1]}
 
 
 def build_control_train_case(model2, width: int, height: int, device=None, target_seed: int = SEED + 19):
@@ -1513,7 +1593,7 @@ def phase_train_verb(tmp: Path, data: Path) -> dict:
     reloaded = checkpoints.state_dict(trainer.state)
     _assert_nested_equal(saved, reloaded, "checkpoint")
     print(f"train verb checkpoint: step {reloaded['step']}, {sum(f.stat().st_size for f in ckpt.rglob('*') if f.is_file()) / 2**20:.1f} MiB, reloads equal")
-    return {"trainer": trainer, "ckpt": ckpt, "launches": counts, "median_step_ms": steady, "losses": losses}
+    return {"trainer": trainer, "ckpt": ckpt, "over": over, "launches": counts, "median_step_ms": steady, "losses": losses}
 
 
 def _assert_nested_equal(a, b, path):
@@ -1574,7 +1654,8 @@ def phase_train_control_verb(tmp: Path, data: Path, ckpt: Path, trainer) -> dict
     for name in ("field_fwd", "field_bwd", "rasterize_fwd", "rasterize_bwd"):
         if not counts[name] > 0:
             raise AssertionError(f"train-control verb launched {name} {counts[name]} times")
-    return {"launches": counts, "median_step_ms": statistics.median(step_ms[DATA_FRAMES:])}
+    return {"trainer": ctrainer, "ckpt": out / "freegaussian" / "checkpoints", "over": over, "mask": mask_path,
+            "launches": counts, "median_step_ms": statistics.median(step_ms[DATA_FRAMES:])}
 
 
 def phase_fwd_walk(trainer) -> dict:
@@ -1688,6 +1769,79 @@ def phase_trunk(model) -> dict:
     return {"launches": counts, "fwd": fwd, "bwd": bwd}
 
 
+def phase_viewer_verb(data: Path, verb: dict, control_verb: dict) -> dict:
+    """The `viewer` verb in process (`cli.serve_viewer`, what `cli.main`
+    runs before it waits) over the `train` verb's checkpoint directory
+    (stage 1: --data --load) and the `train-control` verb's (stage 2:
+    --stage1-checkpoint --gaussian-mask --load, deform_impl "pallas"), each
+    with its verb's config overlay and capacity, at 640x480: the served
+    state is the verb's last step; every GET /render answers image/jpeg,
+    the last one the JPEG of the trainer's own frame for that camera (stage
+    2: at the request's sliders); each request launches the field forward
+    and the compositor once (the launch counts zeroed just before the
+    route's requests and read just after)."""
+    import torch
+
+    from freegaussian_tpu_torch import cli
+    from freegaussian_tpu_torch.engine import checkpoints
+    from freegaussian_tpu_torch.viewer.server import encode_jpeg, orbit_camera, to_rgb8
+
+    w, h = SERVE_WH
+    views = VIEWS[:3]
+    routes = {
+        "stage1": (["--config", HERE / "configs/sim/base.yaml", "--scene-config", verb["over"], "--load", verb["ckpt"]],
+                   verb["ckpt"], {"deform_fwd": 1, "rasterize_fwd": 1}, None),
+        "stage2": (["--config", HERE / "configs/control/sim/base.yaml", "--scene-config", control_verb["over"],
+                    "--stage1-checkpoint", verb["ckpt"], "--gaussian-mask", control_verb["mask"], "--load",
+                    control_verb["ckpt"], "--deform-impl", STAGE2_IMPL],
+                   control_verb["ckpt"], {"field_fwd": 1, "rasterize_fwd": 1}, SLIDERS),
+    }
+    out = {}
+    for route, (flags, ckpt, per_request, atrbs) in routes.items():
+        saved = checkpoints.read_checkpoint(ckpt)  # the directory's latest step
+        argv = ["viewer", "--data", data, *flags, "--capacity", VERB_CAPACITY, "--device", DEVICE, "--host",
+                "127.0.0.1", "--port", 0, "--width", w, "--height", h]
+        args = cli.build_parser().parse_args([str(a) for a in argv])
+        t0 = time.perf_counter()
+        trainer, server = cli.serve_viewer(args)
+        setup_s = time.perf_counter() - t0
+        try:
+            if cli.viewer_route(args) != route or int(trainer.state.step) != saved["step"]:
+                raise AssertionError(f"viewer verb ({route}): serves step {int(trainer.state.step)}, the verb's last "
+                                     f"step is {saved['step']}")
+            served = checkpoints.state_dict(trainer.state)
+            for group in ("params", "control") if route == "stage2" else ("params",):
+                for k, v in saved[group].items():
+                    if not torch.equal(served[group][k], v):
+                        raise AssertionError(f"viewer verb ({route}): the served {group}.{k} is not the checkpoint's")
+            torch.cuda.synchronize()
+            zero_launches()
+            latencies = []
+            for i in range(len(views)):
+                atrb = None if atrbs is None else atrbs[i]
+                t0 = time.perf_counter()
+                status, ctype, body = http_get(server.port, query(views, i, atrb))
+                latencies.append((time.perf_counter() - t0) * 1e3)
+                check_frame(status, ctype, body, w, h, min_colors=1)
+            counts = launches()
+            th, ph, r, t = views[-1]
+            cam = orbit_camera(th, ph, r, width=w, height=h, time=t, device=DEVICE)
+            frame = trainer._render_rgb(cam) if atrbs is None else trainer.render_with_control(cam, 0.1 * atrbs[len(views) - 1])["rgb"]
+            same = body == encode_jpeg(to_rgb8(frame))
+        finally:
+            server.shutdown()
+        print(f"viewer verb {route}: built and loaded in {setup_s:.1f} s, step {int(trainer.state.step)}; "
+              f"{len(views)} requests {w}x{h} image/jpeg, latency ms {[round(v, 1) for v in latencies]}; launches "
+              f"{json.dumps(counts)}; the last answer is the JPEG of the trainer's own frame: {same}")
+        want_counts = {name: len(views) * per_request.get(name, 0) for name in counts}
+        if counts != want_counts:
+            raise AssertionError(f"viewer verb ({route}): launches {counts}, want {want_counts}")
+        if not same:
+            raise AssertionError(f"viewer verb ({route}): the answer is not the JPEG of the trainer's frame")
+        out[route] = {"launches": counts, "latency_ms": latencies, "setup_s": setup_s}
+    return out
+
+
 def trunk_bound(n: int, in_ch: int, save: bool, backward: bool):
     """Least time (ms) the card could take for one call of the trunk on a
     precomputed embedding, and what sets it: `field_bound`'s operations
@@ -1730,7 +1884,8 @@ def main():
         control_verb = phase_train_control_verb(Path(tmp), data, verb["ckpt"], verb["trainer"])
         fwd_walk = phase_fwd_walk(verb["trainer"])
         trunk = phase_trunk(model)
-        del verb["trainer"]
+        phase_viewer_verb(data, verb, control_verb)
+        del verb["trainer"], control_verb["trainer"]
     print(
         f"train verb median step {verb['median_step_ms']:.2f} ms against phase 7's bare step "
         f"{train['median_step_ms']:.2f} ms in this run ({verb['median_step_ms'] / train['median_step_ms']:.2f}x); "

@@ -5,6 +5,10 @@
         [--max-iterations N] [--capacity N] [--deform-impl fused|pallas|headsfused] [--device cuda|cpu]
     python -m freegaussian_tpu_torch.cli train-control --data <dir> --config configs/control/sim/base.yaml \
         --stage1-checkpoint <checkpoint dir or reference .ckpt> [--gaussian-mask gaussian_mask_NxM.npy] ...
+    python -m freegaussian_tpu_torch.cli viewer --data <dir> --config configs/sim/base.yaml \
+        --load <checkpoint dir> [--scene-config scene.yaml] [--capacity N] ...
+    python -m freegaussian_tpu_torch.cli viewer --data <dir> --config configs/control/sim/base.yaml \
+        --stage1-checkpoint <checkpoint dir> [--gaussian-mask gaussian_mask_NxM.npy] [--load <stage-2 dir>] ...
     python -m freegaussian_tpu_torch.cli viewer --checkpoint step-000030000.ckpt \
         [--gaussian-mask gaussian_mask_NxM.npy] [--deform-impl fused|pallas|headsfused] \
         [--width 480] [--height 360] [--port 7007] [--host 0.0.0.0] [--device cuda]
@@ -18,12 +22,20 @@ line of their standard output is the last logged metrics as JSON.
 the field-trunk kernels). `--device` defaults to cuda and exits non-zero
 without a GPU; `--device cpu` runs the kernels' plain versions.
 
-`viewer` serves a reference-format checkpoint (what the JAX package writes
-with `export --format torch`) through the HTTP viewer: a stage-1
-checkpoint, or with `--gaussian-mask` a stage-2 checkpoint (one with
-`control.*` keys) and its cluster mask, whose attribute sliders drive the
-control field. The other dataset-bound verbs (eval, render, cluster, ...)
-come with later slices.
+`viewer` serves a scene through the HTTP viewer (JPEG frames) by one of
+three routes, exactly one given:
+- stage 1 (`--data`): a `Trainer` built from the dataset and the config
+  overlay, as `train` builds it, with the port's checkpoint directory
+  `--load` (its latest step) loaded;
+- stage 2 (`--stage1-checkpoint`, with `--data`): a `ControlTrainer` over
+  the stage-1 checkpoint and the cluster mask `--gaussian-mask` (else the
+  dataset's `gaussian_mask_*.npy`), with a stage-2 directory `--load`
+  loaded; the attribute sliders drive the control field;
+- reference (`--checkpoint`): a reference-format checkpoint (what the JAX
+  package writes with `export --format torch`), stage 1, or with
+  `--gaussian-mask` stage 2 (a checkpoint with `control.*` keys).
+The other dataset-bound verbs (eval, render, cluster, ...) come with later
+slices.
 """
 
 from __future__ import annotations
@@ -42,16 +54,19 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="freegaussian-tpu-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    def train_flags(sp):
+    def data_flags(sp, load_help):
         sp.add_argument("--data", default="")
         sp.add_argument("--dataparser", default="")
         sp.add_argument("--config", default="")
         sp.add_argument("--scene-config", default="")
-        sp.add_argument("--load", default="", help="resume from this checkpoint directory (its latest step)")
-        sp.add_argument("--max-iterations", type=int, default=0)
+        sp.add_argument("--load", default="", help=load_help)
         sp.add_argument("--capacity", type=int, default=0)
         sp.add_argument("--deform-impl", default=None,
                         help="SplatConfig.deform_impl where the config does not set pipeline.model.deform_impl")
+
+    def train_flags(sp):
+        data_flags(sp, "resume from this checkpoint directory (its latest step)")
+        sp.add_argument("--max-iterations", type=int, default=0)
         sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
 
     sp = sub.add_parser("train", help="stage-1 training")
@@ -61,12 +76,15 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--stage1-checkpoint", required=True,
                     help="a stage-1 checkpoint directory of this port, or a reference .ckpt")
     sp.add_argument("--gaussian-mask", default="")
-    sp = sub.add_parser("viewer", help="serve the interactive orbit viewer over a reference checkpoint")
-    sp.add_argument("--checkpoint", required=True, help="reference-format .ckpt")
-    sp.add_argument("--gaussian-mask", default=None,
-                    help="gaussian_mask_NxM.npy: serve stage 2 (the checkpoint must carry control.* keys)")
-    sp.add_argument("--deform-impl", default=SplatConfig.deform_impl,
-                    help="SplatConfig.deform_impl: fused (default), pallas, or headsfused (split-linear chains)")
+    sp = sub.add_parser("viewer", help="serve the interactive orbit viewer")
+    data_flags(sp, "this port's checkpoint directory to serve (its latest step): stage 1, or with "
+                   "--stage1-checkpoint a stage-2 directory")
+    sp.add_argument("--stage1-checkpoint", default="",
+                    help="serve the stage-2 control model over this stage-1 checkpoint (with --data)")
+    sp.add_argument("--checkpoint", default="", help="serve a reference-format .ckpt")
+    sp.add_argument("--gaussian-mask", default="",
+                    help="gaussian_mask_NxM.npy: the stage-2 cluster mask (with --checkpoint, the checkpoint "
+                         "must carry control.* keys)")
     sp.add_argument("--port", type=int, default=7007)
     sp.add_argument("--host", default="0.0.0.0", help="address to bind (127.0.0.1: this machine only)")
     sp.add_argument("--width", type=int, default=480)
@@ -99,6 +117,41 @@ def start_viewer(
     return model, server
 
 
+def viewer_route(args) -> str:
+    """The viewer's route, "stage1", "stage2" or "reference"; exits non-zero
+    unless exactly one is given."""
+    routes = [name for name, given in (
+        ("reference", bool(args.checkpoint)),
+        ("stage2", bool(args.stage1_checkpoint)),
+        ("stage1", bool(args.data or args.load) and not args.stage1_checkpoint),
+    ) if given]
+    if len(routes) != 1:
+        raise SystemExit(
+            "freegaussian-tpu-torch viewer: give exactly one route: --data [--load <checkpoint dir>] (stage 1), "
+            "--data --stage1-checkpoint <checkpoint dir> [--gaussian-mask] [--load] (stage 2), or "
+            f"--checkpoint <reference .ckpt> [--gaussian-mask] (given: {', '.join(routes) or 'none'})"
+        )
+    if routes[0] != "reference" and not args.data:
+        raise SystemExit("freegaussian-tpu-torch viewer: the stage-1 and stage-2 routes build a trainer over --data")
+    if routes[0] == "stage1" and args.gaussian_mask:
+        raise SystemExit("freegaussian-tpu-torch viewer: --gaussian-mask serves stage 2: add --stage1-checkpoint")
+    return routes[0]
+
+
+def serve_viewer(args):
+    """Build the viewer of `args`' route and start it in the background;
+    returns (the served trainer or model, the server)."""
+    route = viewer_route(args)
+    if route == "reference":
+        return start_viewer(
+            Path(args.checkpoint), port=args.port, width=args.width, height=args.height, device=args.device,
+            host=args.host, gaussian_mask=Path(args.gaussian_mask) if args.gaussian_mask else None,
+            deform_impl=args.deform_impl or SplatConfig.deform_impl,
+        )
+    trainer = _build_trainer(args, route == "stage2")
+    return trainer, trainer.start_viewer(port=args.port, width=args.width, height=args.height, host=args.host)
+
+
 def trainer_config(args):
     """The TrainerConfig of a train verb: the YAML overlay, then the flags."""
     from .engine.config import load_yaml_overlay, trainer_config_from_yaml
@@ -113,16 +166,16 @@ def trainer_config(args):
         cfg = dataclasses.replace(cfg, data=args.data)
     if args.dataparser:
         cfg = dataclasses.replace(cfg, dataparser=args.dataparser)
-    if args.max_iterations:
+    if getattr(args, "max_iterations", 0):
         cfg = dataclasses.replace(cfg, max_num_iterations=args.max_iterations)
     if args.capacity:
         cfg = dataclasses.replace(cfg, capacity=args.capacity)
     return cfg
 
 
-def _train(args):
-    """Build the verb's trainer, train, save the last step; returns the last
-    logged metrics."""
+def _build_trainer(args, control: bool):
+    """The `Trainer` (or, with `control`, the `ControlTrainer` over
+    `--stage1-checkpoint`) of a verb's flags, with `--load` loaded."""
     from .device import resolve_device
 
     try:
@@ -130,7 +183,7 @@ def _train(args):
     except RuntimeError as e:
         raise SystemExit(f"freegaussian-tpu-torch {args.cmd}: {e}") from None
     cfg = trainer_config(args)
-    if args.cmd == "train":
+    if not control:
         from .engine.trainer import Trainer
 
         trainer = Trainer(cfg, device=device)
@@ -143,6 +196,13 @@ def _train(args):
         )
     if args.load:
         trainer.load(Path(args.load))
+    return trainer
+
+
+def _train(args):
+    """Build the verb's trainer, train, save the last step; returns the last
+    logged metrics."""
+    trainer = _build_trainer(args, args.cmd == "train-control")
     metrics = trainer.train()
     trainer.save(int(trainer.state.step))
     return trainer, metrics
@@ -157,11 +217,7 @@ def main(argv=None):
         print(json.dumps(metrics))
         return trainer
     elif args.cmd == "viewer":
-        _, server = start_viewer(
-            Path(args.checkpoint), port=args.port, width=args.width, height=args.height,
-            device=args.device, host=args.host,
-            gaussian_mask=Path(args.gaussian_mask) if args.gaussian_mask else None, deform_impl=args.deform_impl,
-        )
+        _, server = serve_viewer(args)
         print("serving; ctrl-c to stop")
         try:
             while True:

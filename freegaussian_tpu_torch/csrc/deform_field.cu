@@ -31,10 +31,11 @@
 // the S X lanes after them: the deform field is S = 1 with the timenet's 30
 // lanes, the control field S = 2 (position, control value) without a time
 // row (126 lanes). Matrix products take bf16 operands with f32 accumulation
-// (tensor cores: WMMA 16x16x16 forward, mma.sync m16n8k16 backward), the
-// bias and ReLU run in f32 and each activation is stored as bf16: the
-// numerics of mlp_pallas.py (_mm, _forward_acts). The heads run in f32 on the CUDA cores, as the Pallas
-// kernel runs them at HIGHEST.
+// (tensor cores: mma.sync m16n8k16 in both directions), the bias and ReLU
+// run in f32 and each activation is stored as bf16: the numerics of
+// mlp_pallas.py (_mm, _forward_acts). The heads run in f32 on the CUDA
+// cores, as the Pallas kernel runs them at HIGHEST: w, v and theta form the
+// SE(3) screw axis.
 //
 // The backward takes dy (N, 13) f32 (HEADS) or dh (N, 256) f32 (!HEADS) and
 // gives dx (N, 3 S), the row sum of d emb (the shared time row's gradient is
@@ -44,27 +45,41 @@
 //
 // Design. The TPU kernel walks row blocks in order and keeps the weight
 // gradients resident across its sequential grid; here blocks run in parallel,
-// so the work is split in three launches:
-//   field_fwd_kernel    one block of 64 rows runs the embedding, the trunk
-//                       (activations ping-pong in shared memory, WMMA B tiles
-//                       read through L2) and the heads or the h store. In
-//                       training it also writes the bf16 embedding and the
-//                       eight activations (4.35 KB a row), which the backward
-//                       reads instead of recomputing.
-//   field_dgrad_kernel  one block of 128 rows (16 warps, one block an SM:
-//                       216,064 bytes of shared memory) walks the layers top
-//                       down. Each product is mma.sync m16n8k16 fed by
-//                       ldmatrix: A is the block's bf16(g) in shared memory,
-//                       B the layer's weight staged 64 rows (32 KB) at a time
-//                       through a two-slice cp.async ring, the next slice in
-//                       flight during this one's products; the next mask
-//                       activation loads by cp.async during the products too.
-//                       The epilogue masks, stores bf16(g) in place and sums
-//                       columns by warp shuffles (no atomics); the layer's G
-//                       leaves by 16-byte stores while the next layer's
-//                       products run. The block's f32 sums (biases, heads,
-//                       d emb row sums) go to its own row of a scratch, added
-//                       in a fixed order by the wrapper.
+// so the work is split in three launches. Every block of the first two is
+// 128 rows of 16 warps (2 x 8: 64 rows by 32 columns a warp) with one block
+// an SM, and every product is mma.sync m16n8k16 on ldmatrix fragments, its
+// weight staged 64 reduction rows (32 KB) at a time through a two-slice
+// cp.async ring, the next slice in flight during this one's products: no
+// operand is read from global memory inside the k loop.
+//   field_fwd_kernel    runs the embedding (layer 0's first slice already in
+//                       flight), then the eight layers as one stream of 32
+//                       slices (the ring runs on across layers, so a layer's
+//                       first slice loads during the last one's products).
+//                       A layer's epilogue works from the accumulator
+//                       registers: bias, ReLU and bf16 rounding, written in
+//                       place over the block's one activation buffer once
+//                       every warp has read it. In training the embedding
+//                       and each activation (4.35 KB a row, which the
+//                       backward reads instead of recomputing) leave by
+//                       16-byte stores during the next layer's products.
+//                       The heads (HEADS) read h_7 and the f32 head weights
+//                       from shared memory: lanes own rows (32 a warp), each
+//                       warp a quarter of the 256 k; h as 16-byte row chunks
+//                       (the row stride is 132 words: 8 rows a phase fall on
+//                       distinct banks), the weights as warp-wide broadcasts,
+//                       13 f32 sums a lane; the quarters meet in shared
+//                       memory and are added in a fixed order. 192,512
+//                       bytes of shared memory.
+//   field_dgrad_kernel  walks the layers top down (216,064 bytes of shared
+//                       memory). A is the block's bf16(g), B the layer's
+//                       weight; the next mask activation loads by cp.async
+//                       during the products too. The epilogue masks, stores
+//                       bf16(g) in place and sums columns by warp shuffles
+//                       (no atomics); the layer's G leaves by 16-byte stores
+//                       while the next layer's products run. The block's f32
+//                       sums (biases, heads, d emb row sums) go to its own
+//                       row of a scratch, added in a fixed order by the
+//                       wrapper.
 //   field_wgrad_kernel  dW = h_below^T bf16(g): one block per (layer, 256 x
 //                       128 tile of dW, share of the rows): G and the input
 //                       stream through a four-chunk cp.async ring (64 rows a
@@ -76,8 +91,8 @@
 // Bound on an H100: ~1.0e11 bf16 tensor operations per forward at N = 1e5
 // (2.1e11 backward) against ~0.46 GB of saved-activation traffic in
 // training; chip_smoke.py prints both bounds from its own run, and the
-// weight-gradient pass's bytes from its tile sizes. wgmma and TMA are later
-// work; the forward is still the first version's.
+// weight-gradient pass's bytes from its tile sizes. wgmma with TMA-staged
+// operands is later work, in both directions.
 //
 // sinf / cosf, never __sinf: with -fmad=false the scaled argument (a power of
 // two times x, exact) reaches the thousands at 2^9, where the fast intrinsic
@@ -88,12 +103,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 constexpr int H = 256;        // trunk width
@@ -102,10 +115,6 @@ constexpr int SKIP_IN = 5;    // the layer that takes [emb | h_4]
 constexpr int EMB = 128;      // embedding lanes (source lanes + time lanes, zero padded)
 constexpr int MAX_SRC = 2;    // 3-vector sources per row
 constexpr int NOUT = 13;      // packed head outputs
-constexpr int ROWS = 64;      // rows of one block
-constexpr int THREADS = 256;  // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int XBYTES = ROWS * 3 * MAX_SRC * 4 + 512;  // the block's source rows, rounded to 2 KB
 constexpr int LDE = EMB + 8;  // shared-memory row strides (bf16 / f32 elements)
 constexpr int LDA = H + 8;
 
@@ -115,69 +124,6 @@ __host__ __device__ constexpr long layer_off(int i) {
     long o = 0;
     for (int j = 0; j < i; ++j) o += (long)H * layer_k(j);
     return o;
-}
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-
-// acc[r][t] += A[r-th 16 rows, :kdim] @ B[:kdim, n0 + 16 t ...]: A is the
-// block's 64 rows in shared memory, B(k, n) = W[n][k] (the forward's W^T) a
-// weight in global memory (L2).
-template <int NT>
-__device__ __forceinline__ void gemm64(Acc (&acc)[4][NT], const bf16* sA, int lda, int kdim,
-                                       const bf16* B, int ldb, int n0) {
-    for (int k0 = 0; k0 < kdim; k0 += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[NT];
-#pragma unroll
-        for (int t = 0; t < NT; ++t) wmma::load_matrix_sync(b[t], B + (size_t)(n0 + 16 * t) * ldb + k0, ldb);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-            wmma::load_matrix_sync(a, sA + r * 16 * lda + k0, lda);
-#pragma unroll
-            for (int t = 0; t < NT; ++t) wmma::mma_sync(acc[r][t], a, b[t], acc[r][t]);
-        }
-    }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(Acc (&acc)[4][NT]) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int t = 0; t < NT; ++t) wmma::fill_fragment(acc[r][t], 0.0f);
-}
-
-// Hand every element of the warp's accumulators to f(row, col, value),
-// through the warp's 16x16 f32 staging tile.
-template <int NT, typename F>
-__device__ __forceinline__ void epilogue(Acc (&acc)[4][NT], float* stage, int n0, int lane, F f) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-            wmma::store_matrix_sync(stage, acc[r][t], 16, wmma::mem_row_major);
-            __syncwarp();
-            for (int e = lane; e < 256; e += 32) f(r * 16 + (e >> 4), n0 + 16 * t + (e & 15), stage[e]);
-            __syncwarp();
-        }
-}
-
-// `rows` rows of `cols` bf16 from shared memory (row stride lds) to global
-// memory (row stride ldg), 16 bytes a thread.
-__device__ __forceinline__ void copy_rows(const bf16* smem, int lds, bf16* gmem, int ldg, int cols, int tid,
-                                          int rows = ROWS) {
-    const int per_row = cols / 8;
-    for (int i = tid; i < rows * per_row; i += THREADS) {
-        const int r = i / per_row, c = (i - r * per_row) * 8;
-        *(uint4*)(gmem + (size_t)r * ldg + c) = *(const uint4*)(smem + r * lds + c);
-    }
-}
-
-// The block's source rows (ROWS x 3 S f32) into shared memory, zeros past n
-// (nothing for S = 0).
-__device__ __forceinline__ void load_sources(float* s_x, const float* x, int row0, int n, int src, int tid) {
-    const int xw = 3 * src;
-    for (int i = tid; i < ROWS * xw; i += THREADS) s_x[i] = row0 + i / xw < n ? x[(size_t)row0 * xw + i] : 0.0f;
 }
 
 __device__ __forceinline__ float embed_lane(const float* xr, int lane, int src, int xl, const float* trow, int tl) {
@@ -195,99 +141,17 @@ __device__ __forceinline__ float embed_lane(const float* xr, int lane, int src, 
 
 __device__ __forceinline__ float relu(float v) { return v < 0.0f ? 0.0f : v; }  // keeps NaN, as torch.relu
 
-constexpr size_t FWD_SMEM =
-    XBYTES + sizeof(bf16) * (ROWS * LDE + 2 * ROWS * LDA) + sizeof(float) * (WARPS * 256 + NOUT * H);
-
-template <bool HEADS>
-__global__ void __launch_bounds__(THREADS)
-field_fwd_kernel(const float* __restrict__ x,      // (N, 3 S)
-                 int n, int src, int xl, const float* __restrict__ trow, int tl,
-                 const bf16* __restrict__ wpack,   // packed trunk weights, layer i (256, K_i)
-                 const float* __restrict__ bias,   // (8, 256)
-                 const float* __restrict__ hw,     // (13, 256), HEADS only
-                 const float* __restrict__ hb,     // (13,), HEADS only
-                 void* __restrict__ out,           // y (N, 13) f32, or h (N, 256) bf16
-                 bf16* __restrict__ emb_out,       // (N_pad, 128) or null
-                 bf16* __restrict__ acts_out,      // (8, N_pad, 256) or null
-                 int n_pad) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    float* s_x = (float*)smem;
-    bf16* s_emb = (bf16*)(smem + XBYTES);
-    bf16* s_act0 = s_emb + ROWS * LDE;
-    bf16* s_act1 = s_act0 + ROWS * LDA;
-    float* s_stage = (float*)(s_act1 + ROWS * LDA);
-    float* s_hw = s_stage + WARPS * 256;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int row0 = blockIdx.x * ROWS;
-    float* stage = s_stage + warp * 256;
-
-    load_sources(s_x, x, row0, n, src, tid);
-    if (HEADS)
-        for (int i = tid; i < NOUT * H; i += THREADS) s_hw[i] = hw[i];
-    __syncthreads();
-    for (int i = tid; i < ROWS * EMB; i += THREADS) {
-        const int r = i / EMB, l = i - r * EMB;
-        const float v = src > 0 ? embed_lane(s_x + 3 * src * r, l, src, xl, trow, tl)
-                                : (row0 + r < n ? x[(size_t)row0 * EMB + i] : 0.0f);  // S = 0: the given lanes
-        s_emb[r * LDE + l] = __float2bfloat16_rn(v);
-    }
-    __syncthreads();
-    if (emb_out) copy_rows(s_emb, LDE, emb_out + (size_t)row0 * EMB, EMB, EMB, tid);
-
-    bf16* cur = s_act0;
-    bf16* nxt = s_act1;
-    const int n0 = warp * 32;
-    for (int i = 0; i < DEPTH; ++i) {
-        Acc acc[4][2];
-        zero(acc);
-        const bf16* W = wpack + layer_off(i);
-        const int K = layer_k(i);
-        if (i == 0) {
-            gemm64<2>(acc, s_emb, LDE, EMB, W, K, n0);
-        } else if (i == SKIP_IN) {
-            gemm64<2>(acc, s_emb, LDE, EMB, W, K, n0);
-            gemm64<2>(acc, cur, LDA, H, W + EMB, K, n0);
-        } else {
-            gemm64<2>(acc, cur, LDA, H, W, K, n0);
-        }
-        const float* b = bias + i * H;
-        epilogue(acc, stage, n0, lane, [&](int r, int c, float v) {
-            nxt[r * LDA + c] = __float2bfloat16_rn(relu(v + b[c]));
-        });
-        __syncthreads();
-        if (acts_out) copy_rows(nxt, LDA, acts_out + ((size_t)i * n_pad + row0) * H, H, H, tid);
-        bf16* tmp = cur;
-        cur = nxt;
-        nxt = tmp;
-    }
-
-    if (HEADS) {
-        float* y = (float*)out;
-        for (int o = tid; o < ROWS * NOUT; o += THREADS) {
-            const int r = o / NOUT, j = o - r * NOUT;
-            if (row0 + r >= n) continue;
-            const bf16* hr = cur + r * LDA;
-            const float* wj = s_hw + j * H;
-            float s = 0.0f;
-            for (int k = 0; k < H; ++k) s += __bfloat162float(hr[k]) * wj[k];
-            y[(size_t)(row0 + r) * NOUT + j] = s + hb[j];
-        }
-    } else if (!acts_out) {  // in training h is acts_out[7], stored above
-        const int rows = min(ROWS, n - row0);  // the last block's rows past n are padding
-        if (rows > 0) copy_rows(cur, LDA, (bf16*)out + (size_t)row0 * H, H, H, tid, rows);
-    }
-}
-
 // ---------------------------------------------------------------------------
-// the backward: tensor-core products with mma.sync m16n8k16 (bf16 operands,
-// f32 accumulation), operands fed by ldmatrix from shared memory, rows and
-// weight slices staged by cp.async
+// the tensor-core machinery of both directions: mma.sync m16n8k16 (bf16
+// operands, f32 accumulation), operands fed by ldmatrix from shared memory,
+// rows and weight slices staged by cp.async
 // ---------------------------------------------------------------------------
 
-constexpr int BROWS = 128;          // rows of one data-gradient block
-constexpr int BTHREADS = 512;       // 16 warps: 2 (rows) x 8 (columns) in the data-gradient walk
+constexpr int BROWS = 128;          // rows of one forward or data-gradient block
+constexpr int BTHREADS = 512;       // 16 warps: 2 (rows) x 8 (columns) in the products
 constexpr int WS = 64;              // weight rows (the products' reduction) per staged slice
-constexpr int LDW = H + 8;          // staged weight slice stride (bf16)
+constexpr int LDW = H + 8;          // backward slice stride (bf16): 64 reduction rows x 256
+constexpr int LDK = WS + 8;         // forward slice stride (bf16): 256 outputs x 64 reduction columns
 constexpr int LDD = EMB + 4;        // d emb stride (f32)
 // per-block f32 sums, in this order: d bias (8, 256), d head_w (13, 256),
 // d head_b (13,), the row sum of d emb (128,)
@@ -301,6 +165,7 @@ constexpr int WG_CHUNK = 64;        // rows per staged chunk
 constexpr int WG_STAGES = 4;
 constexpr int LDGW = H + 8;         // staged G chunk stride (bf16)
 constexpr int LDIW = WG_TK + 8;     // staged input chunk stride (bf16)
+constexpr size_t BXBYTES = sizeof(float) * BROWS * 3 * MAX_SRC;  // a block's source rows
 
 __host__ __device__ constexpr int wgrad_tiles(int i) { return layer_k(i) / WG_TK; }
 
@@ -315,13 +180,15 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Four 8x8 bf16 matrices; lane l gives the row address of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+// Four 8x8 bf16 matrices; lane l gives the row address of matrix l / 8
+// (a shared-window byte address, or a pointer).
+__device__ __forceinline__ void ldsm_x4_at(uint32_t (&r)[4], uint32_t addr) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_u32(p))
+                 : "r"(addr)
                  : "memory");
 }
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) { ldsm_x4_at(r, smem_u32(p)); }
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -338,22 +205,237 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+template <int NT>
+__device__ __forceinline__ void zero_acc(float (&acc)[4][NT][4]) {
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+}
+
 // The block's 128 rows of 256 bf16 between global memory (row stride H) and
 // shared memory (row stride LDA), 16 bytes a thread at a time: into shared
-// memory by cp.async (the caller commits and waits), out by plain stores.
+// memory by cp.async (the caller commits and waits).
 __device__ __forceinline__ void load_rows_async(bf16* smem, const bf16* gmem, int tid) {
     for (int i = tid; i < BROWS * (H / 8); i += BTHREADS) {
         const int r = i / (H / 8), c = (i % (H / 8)) * 8;
         cp_async16(smem + r * LDA + c, gmem + (size_t)r * H + c);
     }
 }
-__device__ __forceinline__ void store_rows(bf16* gmem, const bf16* smem, int tid) {
-    for (int i = tid; i < BROWS * (H / 8); i += BTHREADS) {
-        const int r = i / (H / 8), c = (i % (H / 8)) * 8;
-        *(uint4*)(gmem + (size_t)r * H + c) = *(const uint4*)(smem + r * LDA + c);
+
+// `rows` rows of `cols` bf16 from shared memory (row stride lds) to global
+// memory (row stride ldg), 16 bytes a thread.
+__device__ __forceinline__ void copy_rows(const bf16* smem, int lds, bf16* gmem, int ldg, int cols, int tid,
+                                          int rows = BROWS) {
+    const int per_row = cols / 8;
+    for (int i = tid; i < rows * per_row; i += BTHREADS) {
+        const int r = i / per_row, c = (i - r * per_row) * 8;
+        *(uint4*)(gmem + (size_t)r * ldg + c) = *(const uint4*)(smem + r * lds + c);
     }
 }
 
+// The block's source rows (BROWS x 3 S f32) into shared memory, zeros past n
+// (nothing for S = 0).
+__device__ __forceinline__ void load_sources(float* s_x, const float* x, int row0, int n, int src, int tid) {
+    const int xw = 3 * src;
+    for (int i = tid; i < BROWS * xw; i += BTHREADS) s_x[i] = row0 + i / xw < n ? x[(size_t)row0 * xw + i] : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// the forward
+// ---------------------------------------------------------------------------
+
+constexpr int FWD_RING = H * LDK;  // bf16 elements of one staged forward slice
+constexpr size_t FWD_SMEM =
+    BXBYTES + sizeof(bf16) * (BROWS * LDE + BROWS * LDA + 2 * FWD_RING) + sizeof(float) * NOUT * H;
+static_assert(sizeof(float) * 4 * BROWS * NOUT <= sizeof(bf16) * 2 * FWD_RING, "the heads' quarter sums fit the ring");
+static_assert(FWD_SMEM <= 232448, "one block's shared memory");
+
+// Forward slice: W[0:256, k0:k0 + 64] of a layer (row stride ldw) into ring
+// slot `dst`, output n at dst[n LDK ..], by cp.async (the caller commits).
+__device__ __forceinline__ void load_fwd_slice(bf16* dst, const bf16* W, int ldw, int k0, int tid) {
+    for (int c = tid; c < H * (WS / 8); c += BTHREADS) {
+        const int r = c / (WS / 8), cc = (c % (WS / 8)) * 8;
+        cp_async16(dst + r * LDK + cc, W + (size_t)r * ldw + k0 + cc);
+    }
+}
+
+// acc += A[:, 64 columns] @ slice^T, A the block's 128 rows (shared, row
+// stride LD), the slice holding W[n][k0 + k] at [n LDK + k]: warp (wm, wn)
+// owns rows 64 wm .. and outputs 32 wn ..; lane holds acc[mt][nt] of the
+// m16n8 tile (mt, nt). B(k, n) = W[n][k] is the mma's column-major operand,
+// so both fragments come from plain (untransposed) ldmatrix. a_lane and
+// b_lane are the lane's ldmatrix row addresses at the first column of A's
+// 64 and in the slice; every other offset is a constant.
+template <int LD>
+__device__ __forceinline__ void mma_fwd_slice(float (&acc)[4][4][4], uint32_t a_lane, uint32_t b_lane) {
+#pragma unroll
+    for (int kk = 0; kk < WS; kk += 16) {
+        uint32_t b[4][2];
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+            uint32_t r[4];
+            ldsm_x4_at(r, b_lane + 2 * (np * 16 * LDK + kk));
+            b[2 * np][0] = r[0];
+            b[2 * np][1] = r[1];
+            b[2 * np + 1][0] = r[2];
+            b[2 * np + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+            uint32_t a[4];
+            ldsm_x4_at(a, a_lane + 2 * (mt * 16 * LD + kk));
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) mma16816(acc[mt][nt], a, b[nt][0], b[nt][1]);
+        }
+    }
+}
+
+template <bool HEADS>
+__global__ void __launch_bounds__(BTHREADS, 1)
+field_fwd_kernel(const float* __restrict__ x,      // (N, 3 S)
+                 int n, int src, int xl, const float* __restrict__ trow, int tl,
+                 const bf16* __restrict__ wpack,   // packed trunk weights, layer i (256, K_i)
+                 const float* __restrict__ bias,   // (8, 256)
+                 const float* __restrict__ hw,     // (13, 256), HEADS only
+                 const float* __restrict__ hb,     // (13,), HEADS only
+                 void* __restrict__ out,           // y (N, 13) f32, or h (N, 256) bf16
+                 bf16* __restrict__ emb_out,       // (N_pad, 128) or null
+                 bf16* __restrict__ acts_out,      // (8, N_pad, 256) or null
+                 int n_pad) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    float* s_x = (float*)smem;
+    bf16* s_emb = (bf16*)(smem + BXBYTES);
+    bf16* s_act = s_emb + BROWS * LDE;       // the current activation, overwritten in place layer by layer
+    bf16* s_ring = s_act + BROWS * LDA;      // two staged weight slices
+    float* s_hw = (float*)(s_ring + 2 * FWD_RING);
+    float* s_red = (float*)s_ring;           // the heads' quarter sums (after the last layer)
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int wm = warp >> 3, wn = warp & 7;
+    const int row0 = blockIdx.x * BROWS;
+    // the lane's ldmatrix row addresses: A in the embedding and in the
+    // activation (column 0), B in ring slot 0
+    const uint32_t a_emb = smem_u32(s_emb + (wm * 64 + (lane & 15)) * LDE + (lane >> 4) * 8);
+    const uint32_t a_act = smem_u32(s_act + (wm * 64 + (lane & 15)) * LDA + (lane >> 4) * 8);
+    const uint32_t b_ring = smem_u32(s_ring + (wn * 32 + (lane & 7) + ((lane >> 4) << 3)) * LDK + ((lane >> 3) & 1) * 8);
+
+    load_fwd_slice(s_ring, wpack, layer_k(0), 0, tid);  // in flight during the embedding
+    cp_async_commit();
+    load_sources(s_x, x, row0, n, src, tid);
+    if (HEADS)
+        for (int i = tid; i < NOUT * H; i += BTHREADS) s_hw[i] = hw[i];
+    __syncthreads();
+    for (int i = tid; i < BROWS * EMB; i += BTHREADS) {
+        const int r = i / EMB, l = i - r * EMB;
+        const float v = src > 0 ? embed_lane(s_x + 3 * src * r, l, src, xl, trow, tl)
+                                : (row0 + r < n ? x[(size_t)row0 * EMB + i] : 0.0f);  // S = 0: the given lanes
+        s_emb[r * LDE + l] = __float2bfloat16_rn(v);
+    }
+
+    int q = 0;  // slices staged so far over all layers; slice q sits in ring slot q & 1
+#pragma unroll 1
+    for (int i = 0; i < DEPTH; ++i) {
+        const int K = layer_k(i), S = K / WS;
+        const bf16* W = wpack + layer_off(i);
+        float acc[4][4][4];
+        zero_acc(acc);
+#pragma unroll 1
+        for (int s = 0; s < S; ++s, ++q) {
+            cp_async_wait<0>();
+            // slice q in place for every thread; slice q - 1 read by every
+            // warp; the embedding or the last epilogue written
+            __syncthreads();
+            bf16* next = s_ring + ((q + 1) & 1) * FWD_RING;
+            if (s + 1 < S) load_fwd_slice(next, W, K, (s + 1) * WS, tid);
+            else if (i + 1 < DEPTH) load_fwd_slice(next, wpack + layer_off(i + 1), layer_k(i + 1), 0, tid);
+            cp_async_commit();
+            if (s == 0) {  // the layer below leaves during this layer's products
+                if (i == 0) {
+                    if (emb_out) copy_rows(s_emb, LDE, emb_out + (size_t)row0 * EMB, EMB, EMB, tid);
+                } else if (acts_out) {
+                    copy_rows(s_act, LDA, acts_out + ((size_t)(i - 1) * n_pad + row0) * H, H, H, tid);
+                }
+            }
+            // the skip layer's first EMB / WS slices multiply the embedding
+            const uint32_t b = b_ring + (q & 1) * (2 * FWD_RING);
+            if (i == 0 || (i == SKIP_IN && s < EMB / WS)) mma_fwd_slice<LDE>(acc, a_emb + 2 * s * WS, b);
+            else mma_fwd_slice<LDA>(acc, a_act + 2 * (i == SKIP_IN ? s - EMB / WS : s) * WS, b);
+        }
+        __syncthreads();  // every warp has read s_act: the epilogue writes over it
+        const float* b = bias + i * H;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+            const int c = wn * 32 + nt * 8 + (lane & 3) * 2;
+            const float b0 = b[c], b1 = b[c + 1];
+#pragma unroll
+            for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf) {
+                    const int r = wm * 64 + mt * 16 + (lane >> 2) + 8 * hf;
+                    *(__nv_bfloat162*)(s_act + r * LDA + c) =
+                        __floats2bfloat162_rn(relu(acc[mt][nt][2 * hf] + b0), relu(acc[mt][nt][2 * hf + 1] + b1));
+                }
+        }
+    }
+    __syncthreads();  // h_7 in s_act
+    if (acts_out) copy_rows(s_act, LDA, acts_out + ((size_t)(DEPTH - 1) * n_pad + row0) * H, H, H, tid);
+
+    if (HEADS) {
+        // lane: row (warp & 3) 32 + lane; warp >> 2: the quarter of k
+        const int r = (warp & 3) * 32 + lane, k0 = (warp >> 2) * (H / 4);
+        float yj[NOUT];
+#pragma unroll
+        for (int j = 0; j < NOUT; ++j) yj[j] = 0.0f;
+#pragma unroll 1
+        for (int k = k0; k < k0 + H / 4; k += 8) {
+            const uint4 hv = *(const uint4*)(s_act + r * LDA + k);
+            const uint32_t words[4] = {hv.x, hv.y, hv.z, hv.w};
+            float hf[8];  // bf16 to f32 is exact: the bf16 bits above 16 zero bits
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                hf[2 * e] = __uint_as_float(words[e] << 16);
+                hf[2 * e + 1] = __uint_as_float(words[e] & 0xffff0000u);
+            }
+#pragma unroll
+            for (int j = 0; j < NOUT; ++j) {
+                const float4 w0 = *(const float4*)(s_hw + j * H + k);
+                const float4 w1 = *(const float4*)(s_hw + j * H + k + 4);
+                float s = yj[j];
+                s = fmaf(hf[0], w0.x, s);
+                s = fmaf(hf[1], w0.y, s);
+                s = fmaf(hf[2], w0.z, s);
+                s = fmaf(hf[3], w0.w, s);
+                s = fmaf(hf[4], w1.x, s);
+                s = fmaf(hf[5], w1.y, s);
+                s = fmaf(hf[6], w1.z, s);
+                s = fmaf(hf[7], w1.w, s);
+                yj[j] = s;
+            }
+        }
+        float* red = s_red + ((warp >> 2) * BROWS + r) * NOUT;  // stride 13 words: no bank conflicts
+#pragma unroll
+        for (int j = 0; j < NOUT; ++j) red[j] = yj[j];
+        __syncthreads();
+        float* y = (float*)out;
+        for (int o = tid; o < BROWS * NOUT; o += BTHREADS) {
+            const int rr = o / NOUT, j = o - rr * NOUT;
+            if (row0 + rr >= n) continue;
+            float s = s_red[o];
+#pragma unroll
+            for (int qq = 1; qq < 4; ++qq) s += s_red[qq * BROWS * NOUT + o];
+            y[(size_t)row0 * NOUT + o] = s + hb[j];
+        }
+    } else if (!acts_out) {  // in training h is acts_out[7], stored above
+        const int rows = min(BROWS, n - row0);  // the last block's rows past n are padding
+        if (rows > 0) copy_rows(s_act, LDA, (bf16*)out + (size_t)row0 * H, H, H, tid, rows);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// the backward
+// ---------------------------------------------------------------------------
 // acc += A (the block's 128 rows x 256, shared, stride LDA) @ W[0:256, 0:8 NT 8]
 // (global, row stride ldw): warp (wm, wn) owns rows 64 wm .. and columns
 // NT 8 wn ..; each lane holds acc[mt][nt] of the m16n8 tile (mt, nt). W goes
@@ -417,17 +499,7 @@ __device__ __forceinline__ void gemm_staged(float (&acc)[4][NT][4], const bf16* 
     }
 }
 
-template <int NT>
-__device__ __forceinline__ void zero_acc(float (&acc)[4][NT][4]) {
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-}
 
-constexpr size_t BXBYTES = sizeof(float) * BROWS * 3 * MAX_SRC;
 constexpr size_t DGRAD_SMEM = BXBYTES + sizeof(float) * BROWS * 16 + sizeof(bf16) * (2 * BROWS * LDA + 2 * WS * LDW) +
                               sizeof(float) * 2 * H;
 static_assert(sizeof(float) * NOUT * H <= sizeof(bf16) * 2 * WS * LDW, "the heads' reduction fits the ring");
@@ -458,8 +530,7 @@ field_dgrad_kernel(const float* __restrict__ x, int n, int src, int xl,
     const int row0 = blockIdx.x * BROWS;
     float* pb = small + (size_t)blockIdx.x * SMALL;
 
-    for (int i = tid; i < BROWS * 3 * src; i += BTHREADS)
-        s_x[i] = row0 + i / (3 * src) < n ? x[(size_t)row0 * 3 * src + i] : 0.0f;
+    load_sources(s_x, x, row0, n, src, tid);
     if (HEADS) {
         for (int i = tid; i < BROWS * 16; i += BTHREADS) {
             const int r = i >> 4, j = i & 15;
@@ -530,7 +601,7 @@ field_dgrad_kernel(const float* __restrict__ x, int n, int src, int xl,
 #pragma unroll 1
     for (int i = DEPTH - 1; i >= 1; --i) {
         const int below = i - 1;
-        store_rows(G + ((size_t)i * n_pad + row0) * H, s_g, tid);  // bf16(g_i), the weight gradient's operand
+        copy_rows(s_g, LDA, G + ((size_t)i * n_pad + row0) * H, H, H, tid);  // bf16(g_i), the weight gradient's operand
         float acc[4][4][4];
         zero_acc(acc);
         gemm_staged<4>(acc, s_g, wpack + layer_off(i) + (i == SKIP_IN ? EMB : 0), layer_k(i), s_w, s_m,
@@ -571,7 +642,7 @@ field_dgrad_kernel(const float* __restrict__ x, int n, int src, int xl,
 
     // layer 0 and the skip's embedding columns: d emb = g_0 @ W0 + g_5 @ W5[:, :128],
     // g_5 reloaded (bf16, as the product takes it) from G into s_m
-    store_rows(G + (size_t)row0 * H, s_g, tid);
+    copy_rows(s_g, LDA, G + (size_t)row0 * H, H, H, tid);
     float acc[4][2][4];
     zero_acc(acc);
     gemm_staged<2>(acc, s_g, wpack, EMB, s_w, s_m, G + ((size_t)SKIP_IN * n_pad + row0) * H, tid, lane, wm, wn);
@@ -734,7 +805,7 @@ cudaError_t launch_fwd(const void* x, int n, int src, int xl, const void* trow, 
                        const void* bias, const void* hw, const void* hb, void* out, void* emb_out, void* acts_out,
                        int n_pad, cudaStream_t stream) {
     cudaFuncSetAttribute(field_fwd_kernel<HEADS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
-    field_fwd_kernel<HEADS><<<n_pad / ROWS, THREADS, FWD_SMEM, stream>>>(
+    field_fwd_kernel<HEADS><<<n_pad / BROWS, BTHREADS, FWD_SMEM, stream>>>(
         (const float*)x, n, src, xl, (const float*)trow, tl, (const bf16*)wpack, (const float*)bias,
         (const float*)hw, (const float*)hb, out, (bf16*)emb_out, (bf16*)acts_out, n_pad);
     return cudaGetLastError();
@@ -761,9 +832,9 @@ extern "C" long field_packed_size() { return layer_off(DEPTH); }
 extern "C" int field_fwd(int heads, const void* x, int n, int src, int xl, const void* trow, int tl,
                          const void* wpack, const void* bias, const void* hw, const void* hb, void* out,
                          void* emb_out, void* acts_out, int n_pad, void* stream) {
-    // no early exit at n == 0: the padded rows (n_pad >= 64) still run, so
+    // no early exit at n == 0: the padded rows (n_pad >= 128) still run, so
     // the saved tensors are written whatever n is
-    if (!valid_lanes(src, xl, tl) || (heads && src == 0) || n_pad % ROWS != 0 || n_pad < n || n_pad == 0)
+    if (!valid_lanes(src, xl, tl) || (heads && src == 0) || n_pad % BROWS != 0 || n_pad < n || n_pad == 0)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     return (int)(heads ? launch_fwd<true>(x, n, src, xl, trow, tl, wpack, bias, hw, hb, out, emb_out, acts_out, n_pad, s)

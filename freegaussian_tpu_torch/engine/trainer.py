@@ -163,13 +163,13 @@ class Trainer:
     def viewer_num_attributes(self) -> int:
         return 0  # stage 1 has no control sliders
 
-    def start_viewer(self, port: int = 7007, width: int = 480, height: int = 360):
+    def start_viewer(self, port: int = 7007, width: int = 480, height: int = 360, host: str = "0.0.0.0"):
         """Background HTTP viewer over the live model; returns the server."""
         from ..viewer.server import ViewerServer
 
         server = ViewerServer(
             self.viewer_render_fn(), num_attributes=self.viewer_num_attributes(),
-            width=width, height=height, port=port, device=self.device,
+            width=width, height=height, port=port, host=host, device=self.device,
         )
         server.start_background()
         print(f"viewer: http://localhost:{server.port}/")

@@ -50,8 +50,7 @@ SKIP_IN = 5  # the layer that takes [emb | h_4]
 EMB = 128  # embedding lanes: the source lanes, the time lanes, zero padding
 MAX_SOURCES = 2
 NOUT = 13  # packed head lanes: w (3) | v (3) | rotation (4) | scaling (3)
-# Rows of one data-gradient block; row counts are padded to a multiple (the
-# forward's 64-row blocks divide it).
+# Rows of one forward or data-gradient block; row counts are padded to a multiple.
 ROWS = 128
 # Shares of the rows over which the weight-gradient kernel splits its sums
 # (the wrapper adds the shares in order): 16 tiles x 8 shares, one block an

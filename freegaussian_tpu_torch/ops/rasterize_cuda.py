@@ -4,9 +4,12 @@ PyTorch versions.
 `rasterize_tiles` takes the binned intersections of `ops/tiles.py` and
 composites every tile front to back. On a CUDA tensor it launches the kernel
 of `csrc/rasterize_fwd.cu` (the port of the TPU kernel
-`freegaussian_tpu/ops/rasterize_pallas.py:_fwd_kernel`) or raises; on a CPU
-tensor it runs `rasterize_tiles_plain`, which computes the same function
-with padded (tiles, pixels, K) tensors.
+`freegaussian_tpu/ops/rasterize_pallas.py:_fwd_kernel`: a block per 16 x 16
+quadrant of each tile, walking only the slots whose contract bbox holds the
+quadrant) or raises; on a CPU tensor it runs `rasterize_tiles_plain`, which
+computes the same function with padded (tiles, pixels, K) tensors.
+`rasterize_tiles_quadrants_plain` is a plain model of the kernel's design,
+which the tests hold to `rasterize_tiles_plain` bit for bit.
 
 `rasterize_tiles_bwd` is its backward: one gradient row per intersection
 (d means2d, d conic, d opacity, the AbsGS absgrad |sum over the tile of
@@ -299,12 +302,30 @@ def rasterize_tiles_plain(
     return _composite_plain(rows, radii[gauss_ids.long()], tile_offsets, width, height, tile_size)
 
 
-def _composite_plain(rows, slot_radii, tile_offsets, width: int, height: int, tile_size: int):
+def rasterize_tiles_quadrants_plain(
+    means2d, conics, colors, opacities, radii, gauss_ids, tile_offsets,
+    width: int, height: int, tile_size: int,
+):
+    """Plain PyTorch model of the kernel's design, `rasterize_tiles`'s
+    function by way of 16 x 16 quadrant blocks (`_quadrant_walk`): each
+    quadrant of a tile keeps the run's slots whose contract bbox holds it
+    (every slot at tile 16), compacted in run order with their ranks in the
+    run, and its pixels walk only those; livecnt is the terminating slot's
+    rank, or the run's length. The walk's per-pair weights, put back at
+    their ranks, are summed into color and alpha as `rasterize_tiles_plain`
+    sums them. Not differentiable."""
+    rows = _slot_rows(means2d, conics, colors, opacities, gauss_ids)
+    with torch.no_grad():
+        return _composite_plain(rows, radii[gauss_ids.long()], tile_offsets, width, height, tile_size, quadrants=True)
+
+
+def _composite_plain(rows, slot_radii, tile_offsets, width: int, height: int, tile_size: int, quadrants=False):
     """Composite per-intersection rows (I, 6 + C) in their (tile, depth)
     order. Tiles are taken in order of their intersection count, in batches
     whose padded (tiles, P, K_max) blocks hold at most `PLAIN_BATCH_ELEMENTS`
     pairs; each batch composites all its pairs at once with the same
-    termination rule. Differentiable in `rows`."""
+    termination rule (`_dense_walk`, differentiable in `rows`, or with
+    `quadrants` the kernel's quadrant design, `_quadrant_walk`)."""
     dev = rows.device
     C = rows.shape[1] - 6
     ts = tile_size
@@ -316,7 +337,6 @@ def _composite_plain(rows, slot_radii, tile_offsets, width: int, height: int, ti
     starts = offs[:-1]
     counts = offs[1:] - starts
     gate = ts != CONTRACT_TILE
-    g = float(CONTRACT_TILE)
 
     dt = rows.dtype
     color_t = torch.zeros((num_tiles, P, C), dtype=dt, device=dev)
@@ -324,7 +344,6 @@ def _composite_plain(rows, slot_radii, tile_offsets, width: int, height: int, ti
     live_t = torch.zeros((num_tiles, P), dtype=torch.int32, device=dev)
     tfin_t = torch.ones((num_tiles, P), dtype=dt, device=dev)
 
-    pix = torch.arange(P, device=dev)
     order = torch.argsort(counts, stable=True)
     counts_sorted = counts[order].tolist()
     i = 0
@@ -343,43 +362,13 @@ def _composite_plain(rows, slot_radii, tile_offsets, width: int, height: int, ti
         valid = k[None, :] < cnt[:, None]  # (B, K)
         slot = torch.clamp(starts[tiles][:, None] + k[None, :], max=max(rows.shape[0] - 1, 0))
         data = rows[slot]  # (B, K, 6 + C)
-        gx = data[..., 0][:, None, :]  # (B, 1, K)
-        gy = data[..., 1][:, None, :]
-        ca = data[..., 2][:, None, :]
-        cb = data[..., 3][:, None, :]
-        cc = data[..., 4][:, None, :]
-        op = data[..., 5][:, None, :]
-        px = ((tiles % tiles_w)[:, None] * ts + pix[None, :] % ts).to(dt)[..., None] + 0.5  # (B, P, 1)
-        py = ((tiles // tiles_w)[:, None] * ts + pix[None, :] // ts).to(dt)[..., None] + 0.5
-
-        dx = gx - px  # (B, P, K)
-        dy = gy - py
-        sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
-        alpha = torch.clamp(op * torch.exp(-sigma), max=MAX_ALPHA)
-        vis = valid[:, None, :] & (sigma >= 0) & (alpha >= ALPHA_THRESHOLD)
-        if gate:
-            r = slot_radii[slot][:, None, :]
-            gxd, gyd = gx.detach(), gy.detach()
-            tx = torch.floor((px - 0.5) / g)
-            ty = torch.floor((py - 0.5) / g)
-            vis = (
-                vis
-                & (tx >= torch.floor((gxd - r) / g)) & (tx < torch.ceil((gxd + r) / g))
-                & (ty >= torch.floor((gyd - r) / g)) & (ty < torch.ceil((gyd + r) / g))
-            )
-        a_eff = torch.where(vis, alpha, torch.zeros_like(alpha))
-        incl_T = _sequential_cumprod(1.0 - a_eff)
-        excl_T = torch.cat([torch.ones_like(incl_T[..., :1]), incl_T[..., :-1]], dim=-1)
-        terminated = torch.cummax((incl_T <= TRANSMITTANCE_EPS).to(torch.int32), dim=-1).values > 0
-        w = torch.where(vis & ~terminated, a_eff * excl_T, torch.zeros_like(a_eff))
-
+        walk = _quadrant_walk if quadrants else _dense_walk
+        w, walked, tfin = walk(data, valid, slot_radii[slot], cnt, tiles, tiles_w, ts, gate)
         col = data[..., 6:]  # (B, K, C)
         color_t[tiles] = torch.einsum("bpk,bkc->bpc", w, col)
         alpha_t[tiles] = w.sum(-1)
-        walked = (valid[:, None, :] & ~terminated).sum(-1).to(torch.int32)  # (B, P)
         live_t[tiles] = walked
-        last = torch.clamp(walked.long() - 1, min=0)[..., None]
-        tfin_t[tiles] = torch.where(walked > 0, incl_T.gather(-1, last)[..., 0], torch.ones_like(w[..., 0]))
+        tfin_t[tiles] = tfin
 
     def to_image(x):
         # (T, P, ...) tile layout -> (H, W, ...) image layout
@@ -388,6 +377,115 @@ def _composite_plain(rows, slot_radii, tile_offsets, width: int, height: int, ti
         return x.reshape(tiles_h * ts, tiles_w * ts, *rest)[:height, :width].contiguous()
 
     return to_image(color_t), to_image(alpha_t), to_image(live_t), to_image(tfin_t)
+
+
+def _pair_alphas(data, px, py):
+    """sigma and alpha of every (pixel, slot) pair: data (B, K, 6 + C) slot
+    rows, px / py (B, P, 1) pixel centers; (B, P, K) each."""
+    gx = data[..., 0][:, None, :]  # (B, 1, K)
+    gy = data[..., 1][:, None, :]
+    ca = data[..., 2][:, None, :]
+    cb = data[..., 3][:, None, :]
+    cc = data[..., 4][:, None, :]
+    op = data[..., 5][:, None, :]
+    dx = gx - px  # (B, P, K)
+    dy = gy - py
+    sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+    return sigma, torch.clamp(op * torch.exp(-sigma), max=MAX_ALPHA)
+
+
+def _transmittance(alpha, vis):
+    """(weights, inclusive transmittance, terminated) of the front-to-back
+    walk over the last axis, pairs outside `vis` skipped."""
+    a_eff = torch.where(vis, alpha, torch.zeros_like(alpha))
+    incl_T = _sequential_cumprod(1.0 - a_eff)
+    excl_T = torch.cat([torch.ones_like(incl_T[..., :1]), incl_T[..., :-1]], dim=-1)
+    terminated = torch.cummax((incl_T <= TRANSMITTANCE_EPS).to(torch.int32), dim=-1).values > 0
+    w = torch.where(vis & ~terminated, a_eff * excl_T, torch.zeros_like(a_eff))
+    return w, incl_T, terminated
+
+
+def _final_transmittance(incl_T, walked):
+    """T after the last of `walked` walked positions (1 where none)."""
+    last = torch.clamp(walked.long() - 1, min=0)[..., None]
+    return torch.where(walked > 0, incl_T.gather(-1, last)[..., 0], torch.ones_like(incl_T[..., 0]))
+
+
+def _dense_walk(data, valid, r, cnt, tiles, tiles_w: int, ts: int, gate: bool):
+    """Every pixel of each tile walks the tile's whole run: (w (B, P, K),
+    livecnt (B, P), t_final (B, P))."""
+    del cnt
+    dev, dt = data.device, data.dtype
+    pix = torch.arange(ts * ts, device=dev)
+    px = ((tiles % tiles_w)[:, None] * ts + pix[None, :] % ts).to(dt)[..., None] + 0.5  # (B, P, 1)
+    py = ((tiles // tiles_w)[:, None] * ts + pix[None, :] // ts).to(dt)[..., None] + 0.5
+    sigma, alpha = _pair_alphas(data, px, py)
+    vis = valid[:, None, :] & (sigma >= 0) & (alpha >= ALPHA_THRESHOLD)
+    if gate:
+        g = float(CONTRACT_TILE)
+        r = r[:, None, :]
+        gxd, gyd = data[..., 0].detach()[:, None, :], data[..., 1].detach()[:, None, :]
+        tx = torch.floor((px - 0.5) / g)
+        ty = torch.floor((py - 0.5) / g)
+        vis = (
+            vis
+            & (tx >= torch.floor((gxd - r) / g)) & (tx < torch.ceil((gxd + r) / g))
+            & (ty >= torch.floor((gyd - r) / g)) & (ty < torch.ceil((gyd + r) / g))
+        )
+    w, incl_T, terminated = _transmittance(alpha, vis)
+    walked = (valid[:, None, :] & ~terminated).sum(-1).to(torch.int32)  # (B, P)
+    return w, walked, _final_transmittance(incl_T, walked)
+
+
+def _quadrant_walk(data, valid, r, cnt, tiles, tiles_w: int, ts: int, gate: bool):
+    """`_dense_walk`'s outputs by the kernel's design: for each 16 x 16
+    quadrant of the tiles, the slots whose contract bbox holds it (the gate,
+    applied per quadrant: at tile 32 a quadrant is one contract tile),
+    compacted in run order with their ranks; the quadrant's pixels walk those
+    alone, livecnt is the rank of the slot that terminates them (else the
+    run's length), and each weight goes back to its slot's rank."""
+    dev, dt = data.device, data.dtype
+    B, K = valid.shape
+    side = ts // CONTRACT_TILE
+    g = float(CONTRACT_TILE)
+    w = torch.zeros((B, ts * ts, K), dtype=dt, device=dev)
+    walked = torch.zeros((B, ts * ts), dtype=torch.int32, device=dev)
+    tfin = torch.ones((B, ts * ts), dtype=dt, device=dev)
+    qp = torch.arange(CONTRACT_TILE * CONTRACT_TILE, device=dev)  # a quadrant's pixels, row-major
+    gx, gy = data[..., 0], data[..., 1]
+    for q in range(side * side):
+        qx = (tiles % tiles_w) * side + q % side  # (B,) the quadrant's contract tile
+        qy = (tiles // tiles_w) * side + q // side
+        passing = valid
+        if gate:
+            tx, ty = qx.to(dt)[:, None], qy.to(dt)[:, None]
+            passing = (
+                passing
+                & (tx >= torch.floor((gx - r) / g)) & (tx < torch.ceil((gx + r) / g))
+                & (ty >= torch.floor((gy - r) / g)) & (ty < torch.ceil((gy + r) / g))
+            )
+        npass = passing.sum(1)
+        k_c = max(int(npass.max()), 1)
+        # the passing slots first, in run order: their ranks in the run
+        ranks = torch.argsort((~passing).to(torch.int8), dim=1, stable=True)[:, :k_c]  # (B, K')
+        kept = torch.arange(k_c, device=dev)[None, :] < npass[:, None]
+        cdata = data.gather(1, ranks[..., None].expand(-1, -1, data.shape[-1]))
+        px = (qx[:, None] * CONTRACT_TILE + qp[None, :] % CONTRACT_TILE).to(dt)[..., None] + 0.5  # (B, 256, 1)
+        py = (qy[:, None] * CONTRACT_TILE + qp[None, :] // CONTRACT_TILE).to(dt)[..., None] + 0.5
+        sigma, alpha = _pair_alphas(cdata, px, py)
+        vis = kept[:, None, :] & (sigma >= 0) & (alpha >= ALPHA_THRESHOLD)
+        wq, incl_T, terminated = _transmittance(alpha, vis)
+        stop = kept[:, None, :] & terminated
+        first = stop.to(torch.int32).argmax(-1)  # the first terminated compacted position
+        live = torch.where(stop.any(-1), ranks.gather(1, first), cnt[:, None])
+        steps = (kept[:, None, :] & ~terminated).sum(-1)  # compacted slots walked
+        pix = ((q // side) * CONTRACT_TILE + qp // CONTRACT_TILE) * ts + (q % side) * CONTRACT_TILE + qp % CONTRACT_TILE
+        w[:, pix] = torch.zeros((B, qp.shape[0], K), dtype=dt, device=dev).scatter(
+            2, ranks[:, None, :].expand(-1, qp.shape[0], -1), wq
+        )
+        walked[:, pix] = live.to(torch.int32)
+        tfin[:, pix] = _final_transmittance(incl_T, steps)
+    return w, walked, tfin
 
 
 def rasterize_tiles_bwd_plain(

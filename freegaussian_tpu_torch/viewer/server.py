@@ -2,11 +2,15 @@
 
 Twin of `freegaussian_tpu/viewer/server.py`: the same routes (`/`, `/info`,
 `/render?th=&ph=&r=&t=&atrb=`) and page, a stdlib ThreadingHTTPServer, and
-one render at a time. Frames are PNG (`viewer/png.py`) instead of JPEG.
+one render at a time. Frames are JPEG, encoded by Pillow with the bytes
+imageio writes (the reference's encoder): Pillow is imported at the first
+encode, so importing the package needs no Pillow, and a missing Pillow
+raises there.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -18,7 +22,6 @@ import torch
 
 from ..data.cameras import Camera
 from ..models.control_model import Controller
-from .png import encode_png
 
 _PAGE = """<!DOCTYPE html>
 <html><head><title>freegaussian-tpu viewer</title><style>
@@ -106,15 +109,27 @@ def to_rgb8(rgb) -> np.ndarray:
     return np.clip(np.asarray(rgb) * 255, 0, 255).astype(np.uint8)
 
 
+def encode_jpeg(rgb8: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 -> JPEG bytes with Pillow's defaults (quality 75), the
+    bytes `imageio.v2.imwrite(buf, rgb8, format="jpeg")` writes."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("the viewer encodes its frames as JPEG with Pillow (PIL), which is not installed") from e
+    buf = io.BytesIO()
+    Image.fromarray(rgb8).save(buf, "JPEG")
+    return buf.getvalue()
+
+
 def render_orbit_view(
     render_fn: Callable[[Camera, Optional[np.ndarray]], object],
     theta: float, phi: float, radius: float,
     *, width: int = 480, height: int = 360, time: float = 0.0,
     atrb_values: Optional[np.ndarray] = None, device="cuda",
 ) -> bytes:
-    """Render one orbit view to PNG bytes."""
+    """Render one orbit view to JPEG bytes."""
     cam = orbit_camera(theta, phi, radius, width=width, height=height, time=time, device=device)
-    return encode_png(to_rgb8(render_fn(cam, atrb_values)))
+    return encode_jpeg(to_rgb8(render_fn(cam, atrb_values)))
 
 
 def model_render_fn(model) -> Callable:
@@ -205,7 +220,7 @@ class ViewerServer:
                             time=get("t", 0.0), atrb_values=atrb, device=viewer.device,
                         )
                     self.send_response(200)
-                    self.send_header("Content-Type", "image/png")
+                    self.send_header("Content-Type", "image/jpeg")
                 else:
                     self.send_response(404)
                     body = b"not found"

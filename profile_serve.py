@@ -16,10 +16,10 @@ Serving, for each frame size (640x480 and the native 1296x968, tile 32 as
 SplatConfig serves):
 
   request   host clock around `render_orbit_view` (forward, copy to the
-            host, PNG encode), median of REPS
+            host, JPEG encode), median of REPS
   layers    the same calls with every layer wrapped in
             `torch.cuda.synchronize()` and a host clock: deform field,
-            projection, SH, binning, compositor, copy + quantize, PNG encode;
+            projection, SH, binning, compositor, copy + quantize, JPEG encode;
             the rest of the request is the glue between them (median of REPS)
   device    one `torch.profiler` window over REPS requests: the summed time
             of the device's own events (kernels and copies, one stream) over
@@ -316,7 +316,7 @@ def profile_size(model, width: int, height: int, stage2: bool = False) -> dict:
         (rasterize_cuda, "build_intersections", "binning"),
         (rasterize_cuda, "rasterize_tiles", "compositor"),
         (server, "to_rgb8", "copy+quantize"),
-        (server, "encode_png", "png"),
+        (server, "encode_jpeg", "jpeg"),
     ]
     layers = _synced_layers(request, patched)
     window = _device_window(request, REPS)

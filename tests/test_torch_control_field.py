@@ -105,7 +105,7 @@ def test_field_trunk_matches_jax_pallas(mode):
     """`field_trunk` (plain versions) against `fused_control_trunk` (two
     sources, no time row) and `fused_deform_trunk` (one source and a time
     row): the output and every gradient of one vector-Jacobian product, the
-    time row's included; 130 rows, not a multiple of the 64-row block."""
+    time row's included; 130 rows, not a multiple of the kernels' 128-row block."""
     n = 130
     rng = np.random.default_rng(7 if mode == "control" else 8)
     in_ch = 126 if mode == "control" else 93

@@ -44,8 +44,7 @@ from freegaussian_tpu_torch.models.control_model import (
 from freegaussian_tpu_torch.models.fields import ControlField, DeformField
 from freegaussian_tpu_torch.models.splat_model import SplatConfig as TConfig
 from freegaussian_tpu_torch.preprocess.clustering import load_gaussian_mask, save_gaussian_mask
-from freegaussian_tpu_torch.viewer.png import decode_png
-from freegaussian_tpu_torch.viewer.server import ViewerServer, control_render_fn, orbit_camera, to_rgb8
+from freegaussian_tpu_torch.viewer.server import ViewerServer, control_render_fn, encode_jpeg, orbit_camera, to_rgb8
 from torch_port_helpers import camera_arrays, field_shapes, flax_linear_vars, gaussian_scene_3d, jax_camera, torch_camera
 
 ATOL = 2e-5
@@ -280,13 +279,13 @@ def test_cli_viewer_serves_stage2_sliders(tmp_path):
         assert status == 200 and json.loads(body) == {"num_attributes": M}
         sliders = [3.0, -2.0, 1.0, 0.0, 2.5, -3.0, -1.0, 0.0, 2.0]
         status, ctype, body = _get(server.port, "/render?th=0.2&ph=0.1&r=4&t=0.5&atrb=" + ",".join(map(str, sliders)))
-        assert status == 200 and ctype == "image/png"
+        assert status == 200 and ctype == "image/jpeg"
         cam = orbit_camera(0.2, 0.1, 4.0, width=W, height=H, time=0.5, device="cpu")
         want = model(cam, 0.1 * np.asarray(sliders, np.float32).reshape(M, 3))["rgb"]
-        np.testing.assert_array_equal(decode_png(body), to_rgb8(want))
-        rest = decode_png(_get(server.port, "/render?th=0.2&ph=0.1&r=4&t=0.5")[2])
-        np.testing.assert_array_equal(rest, to_rgb8(control_render_fn(model)(cam)))
-        assert not np.array_equal(rest, decode_png(body))  # the sliders move the render
+        assert body == encode_jpeg(to_rgb8(want))
+        rest = _get(server.port, "/render?th=0.2&ph=0.1&r=4&t=0.5")[2]
+        assert rest == encode_jpeg(to_rgb8(control_render_fn(model)(cam)))
+        assert rest != body  # the sliders move the render
     finally:
         server.shutdown()
     pallas = t_compat.load_control_checkpoint(path, mask_path, cfg=TConfig(deform_impl="pallas"), device="cpu")

@@ -61,7 +61,7 @@ def _trunk(rng, in_ch):
 @pytest.mark.parametrize("n,t_lanes", [(130, 30), (70, 21)], ids=["timenet", "no-timenet"])
 def test_fused_field_matches_jax_pallas(n, t_lanes):
     """Outputs and every gradient (x, the time row, trunk and heads) of one
-    vector-Jacobian product, rows not a multiple of the 64-row block."""
+    vector-Jacobian product, rows not a multiple of the kernels' 128-row block."""
     rng = np.random.default_rng(n)
     ws, bs, hws, hbs = _trunk(rng, 63 + t_lanes)
     x = rng.normal(size=(n, 3)).astype(np.float32)

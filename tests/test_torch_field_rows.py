@@ -1,6 +1,6 @@
-"""The field MLPs at row counts around the backward's 128-row block: the
-saved tensors are padded to a multiple of `mlp_cuda.ROWS` (128; the
-forward's 64-row blocks divide it), and the port's fused deform field and
+"""The field MLPs at row counts around the kernels' 128-row block: the
+saved tensors are padded to a multiple of `mlp_cuda.ROWS` (128, the rows
+of a forward and of a data-gradient block), and the port's fused deform field and
 control trunk (their plain versions, on the CPU) agree with the JAX
 package's Pallas kernels in interpret mode at n = 1, 63, 65, 127 and 129.
 Budgets as tests/test_torch_deform_fused.py: outputs max 1e-2 / normwise

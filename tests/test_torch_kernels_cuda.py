@@ -28,6 +28,11 @@ reverse walk's, which reads the forward's own live counts. At tile 32 the
 backward's quadrant walk is also held to the plain model of its per-quadrant
 partial sums (rtol 1e-3 / atol 1e-4). Both backwards add their partial sums
 in a fixed order, so two calls on the same inputs are compared bit for bit.
+The forward's quadrant blocks give livecnt and t_final bit for bit as the
+plain version and its plain model (`rasterize_tiles_quadrants_plain`) do, on
+a bench-like and a sparse frame; two forward calls are bit-equal. The field
+forward, in both modes and in all three source modes, is held at 1, 127,
+128, 129 and 257 rows, around its 128-row block.
 """
 
 import numpy as np
@@ -42,10 +47,11 @@ from freegaussian_tpu_torch.ops.rasterize_cuda import (
     rasterize_tiles_bwd_fwd,
     rasterize_tiles_bwd_plain,
     rasterize_tiles_plain,
+    rasterize_tiles_quadrants_plain,
     reduce_rows_by_gid,
 )
 from freegaussian_tpu_torch.ops.tiles import build_intersections
-from torch_port_helpers import clustered_scene_2d
+from torch_port_helpers import bench_like_scene, clustered_scene_2d
 
 ATOL = 2e-5
 
@@ -698,3 +704,103 @@ def test_cuda_bwd_kernels_are_deterministic(cuda_device, tile_size):
         b = fn(*args[:7], livecnt, pixel_in, g_color, g_alpha, *args[7:])
         torch.cuda.synchronize()
         assert torch.equal(a, b)
+
+
+def _frame_args(device, channels, tile_size, frame, seed):
+    """A bench-like 96 x 64 frame (small Gaussians over the whole frame,
+    bench.py's opacity mixture), or its every tenth Gaussian ("sparse")."""
+    scene = bench_like_scene(seed=seed, channels=channels)
+    if frame == "sparse":
+        scene = tuple(a[::10] for a in scene)
+    m, con, col, op, dep, rad = [torch.tensor(a, device=device) for a in scene]
+    r = rad.float()
+    isect = build_intersections(m, r, dep, 96, 64, tile_size)
+    return (m, con, col, op, r, isect.gauss_ids, isect.tile_offsets, 96, 64, tile_size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", ["bench", "sparse"])
+@pytest.mark.parametrize("tile_size", [16, 32])
+@pytest.mark.parametrize("channels", [3, 5])
+def test_cuda_fwd_quadrants_match_plain(cuda_device, channels, tile_size, frame):
+    """livecnt and t_final bit-equal to the plain version and to the plain
+    model of the quadrant design (every product and sum rounds alike); color
+    and alpha within atol 2e-5 (summation order)."""
+    args = _frame_args(cuda_device, channels, tile_size, frame, channels)
+    before = rasterize_cuda.LAUNCHES["rasterize_fwd"]
+    got = rasterize_tiles(*args)
+    torch.cuda.synchronize()
+    assert rasterize_cuda.LAUNCHES["rasterize_fwd"] == before + 1
+    want = rasterize_tiles_plain(*args)
+    model = rasterize_tiles_quadrants_plain(*args)
+    for name, a, b, c in zip(("color", "alpha", "livecnt", "t_final"), got, want, model):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        if name in ("livecnt", "t_final"):
+            assert torch.equal(a, b) and torch.equal(a, c), name
+        else:
+            torch.testing.assert_close(a, b, atol=ATOL, rtol=0, msg=name)
+    assert (got[2] > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size", [16, 32])
+def test_cuda_fwd_quadrants_write_an_empty_frame(cuda_device, tile_size):
+    """No intersection at all, over freshly allocated outputs: every pixel
+    is written (color and alpha 0, livecnt 0, t_final 1)."""
+    m, con, col, op, r, _, _, w, h, ts = _frame_args(cuda_device, 3, tile_size, "sparse", 2)
+    r = torch.zeros_like(r)
+    isect = build_intersections(m, r, torch.ones_like(r), w, h, ts)
+    assert isect.num_isects == 0
+    poison = torch.full((1 << 20,), float("nan"), device=cuda_device)
+    del poison
+    color, alpha, livecnt, t_final = rasterize_tiles(m, con, col, op, r, isect.gauss_ids, isect.tile_offsets, w, h, ts)
+    torch.cuda.synchronize()
+    assert torch.all(color == 0) and torch.all(alpha == 0)
+    assert torch.all(livecnt == 0) and torch.all(t_final == 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size", [16, 32])
+def test_cuda_fwd_is_deterministic(cuda_device, tile_size):
+    args = _frame_args(cuda_device, 4, tile_size, "bench", 7)
+    first, second = rasterize_tiles(*args), rasterize_tiles(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _field_fwd_case(device, kind, n, seed):
+    """(forward, plain forward, leading arguments) of one mode of
+    `field_fwd`: "heads" (the deform field), "control" (two sources),
+    "deform" (one source and a time row), "trunk" (no sources)."""
+    if kind == "heads":
+        return mlp_cuda.deform_field_fwd, mlp_cuda.deform_field_fwd_plain, _deform_inputs(device, n, seed)
+    if kind == "trunk":
+        return mlp_cuda.trunk_fwd, mlp_cuda.trunk_fwd_plain, _trunk_inputs(device, n, seed)
+    return mlp_cuda.field_trunk_fwd, mlp_cuda.field_trunk_fwd_plain, _field_inputs(device, n, seed, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["heads", "control", "deform", "trunk"])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 257])
+def test_cuda_field_fwd_matches_plain_around_the_block(cuda_device, kind, n):
+    """Training mode (the saved embedding and activations written too) and
+    serving mode give the same output; it is within the forward's budget of
+    the plain version, and the saved tensors' first layers round alike but
+    for rare f32 near-ties."""
+    fwd, plain, args = _field_fwd_case(cuda_device, kind, n, n + 61)
+    poison = torch.full((8, 1 << 20), float("nan"), device=cuda_device)
+    del poison
+    out, (emb, acts) = fwd(*args, True)
+    out_serve, saved = fwd(*args, False)
+    torch.cuda.synchronize()
+    assert saved is None and torch.equal(out, out_serve)
+    assert torch.isfinite(emb).all() and torch.isfinite(acts).all()
+    want, (embp, actsp) = plain(*args, True)
+    assert out.shape == want.shape and torch.isfinite(out).all()
+    mx, nm = _rel(out.float(), want.float())
+    assert mx <= 1e-2 and nm <= 5e-3, (kind, n, mx, nm)
+    assert int((emb != embp).sum()) <= max(1, emb.numel() // 1000)
+    assert int((acts[0, :n] != actsp[0, :n]).sum()) <= max(1, n * 256 // 1000)
+    if kind != "heads":
+        assert torch.equal(out, acts[-1, :n])  # in training h is the last saved activation

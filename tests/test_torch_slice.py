@@ -34,12 +34,13 @@ from freegaussian_tpu_torch.preprocess.render_offline import render_color_images
 from freegaussian_tpu_torch.viewer.png import decode_png, encode_png
 from freegaussian_tpu_torch.viewer.server import (
     ViewerServer,
+    encode_jpeg,
     model_render_fn,
     orbit_camera,
     render_orbit_view,
     to_rgb8,
 )
-from torch_port_helpers import camera_arrays, gaussian_scene_3d, jax_camera, torch_camera
+from torch_port_helpers import camera_arrays, decode_jpeg, gaussian_scene_3d, jax_camera, torch_camera
 
 ATOL = 2e-5
 
@@ -162,11 +163,11 @@ def test_viewer_serves_png_of_the_model_render():
         assert status == 200 and b"/render" in page
         assert _get(server.port, "/nope")[0] == 404
         status, ctype, body = _get(server.port, "/render?th=0.4&ph=0.2&r=3.5&t=0.3")
-        assert status == 200 and ctype == "image/png"
-        img = decode_png(body)
+        assert status == 200 and ctype == "image/jpeg"
         direct = model(orbit_camera(0.4, 0.2, 3.5, width=48, height=32, time=0.3, device="cpu"))["rgb"]
-        np.testing.assert_array_equal(img, to_rgb8(direct))
-        assert img.std() > 1.0
+        assert body == encode_jpeg(to_rgb8(direct))  # the frame of the same camera, encoded alike
+        img = decode_jpeg(body)
+        assert img.shape == (32, 48, 3) and img.std() > 1.0
     finally:
         server.shutdown()
 
@@ -179,7 +180,8 @@ def test_orbit_camera_and_png_round_trip():
     rgb8 = np.random.default_rng(0).integers(0, 256, size=(5, 7, 3), dtype=np.uint8)
     np.testing.assert_array_equal(decode_png(encode_png(rgb8)), rgb8)
     data = render_orbit_view(lambda c, a: torch.full((c.height, c.width, 3), 0.5), 0.0, 0.0, 4.0, width=8, height=6, device="cpu")
-    assert data[:8] == b"\x89PNG\r\n\x1a\n" and decode_png(data).shape == (6, 8, 3)
+    assert data[:3] == b"\xff\xd8\xff" and data == encode_jpeg(np.full((6, 8, 3), 127, np.uint8))
+    assert decode_jpeg(data).shape == (6, 8, 3)
 
 
 def test_render_offline_writes_png_and_depth(tmp_path):
@@ -207,6 +209,6 @@ def test_cli_viewer_serves_a_reference_checkpoint(tmp_path):
     try:
         assert dataclasses.asdict(loaded.cfg)["tile_size"] == 32 and loaded.step == 30000
         status, ctype, body = _get(server.port, "/render?th=0.1&ph=0.0&r=4&t=0.5")
-        assert status == 200 and decode_png(body).shape == (24, 40, 3)
+        assert status == 200 and ctype == "image/jpeg" and decode_jpeg(body).shape == (24, 40, 3)
     finally:
         server.shutdown()

@@ -270,11 +270,11 @@ def test_cli_refuses_cuda_without_a_gpu(dataset):
 def test_trainer_viewers_serve_the_live_state(dataset, tmp_path):
     """`start_viewer` over a stage-1 trainer, and over a stage-2 trainer
     started from its checkpoint with a mask file: each answers GET /render
-    with a PNG of the requested size; the stage-2 sliders move the frame."""
+    with a JPEG of the requested size; the stage-2 sliders move the frame."""
     import http.client
 
     from freegaussian_tpu_torch.engine.control_trainer import ControlTrainer
-    from freegaussian_tpu_torch.viewer.png import decode_png
+    from torch_port_helpers import decode_jpeg
 
     def get(port, path):
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
@@ -302,7 +302,7 @@ def test_trainer_viewers_serve_the_live_state(dataset, tmp_path):
             status, ctype, body = get(server.port, "/render?th=0.2&ph=0.1&r=4.5&t=0.3" + query)
         finally:
             server.shutdown()
-        assert status == 200 and ctype == "image/png"
-        frames.append(decode_png(body))
+        assert status == 200 and ctype == "image/jpeg"
+        frames.append(decode_jpeg(body))
         assert frames[-1].shape == (24, 40, 3)
     assert not np.array_equal(frames[1], frames[2])

@@ -51,7 +51,7 @@ def _trunk(rng, in_ch):
 def test_fused_trunk_matches_jax_pallas(n, e2, broadcast):
     """The output and every gradient of one vector-Jacobian product: x_emb,
     t_emb ((N, E2), or (1, E2) broadcast, whose gradient sums the rows), the
-    eight weights and biases; rows not a multiple of the 64-row block."""
+    eight weights and biases; rows not a multiple of the kernels' 128-row block."""
     rng = np.random.default_rng(n)
     ws, bs = _trunk(rng, 63 + e2)
     x_emb = rng.normal(size=(n, 63)).astype(np.float32)

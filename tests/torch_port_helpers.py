@@ -2,6 +2,8 @@
 PyTorch port against the JAX package on identical inputs, and a matching
 pair of JAX / port training states with the JAX step's random draws."""
 
+import io
+
 import numpy as np
 
 
@@ -31,6 +33,26 @@ def clustered_scene_2d(n=90, width=48, height=32, seed=0, n_clusters=3, channels
     radii[::13] = 0
     f = lambda x: x.astype(np.float32)
     return f(means2d), f(conics), f(colors), f(opacities), f(depths), radii
+
+
+def bench_like_scene(n=1500, width=96, height=64, seed=0, channels=3):
+    """Screen-space Gaussians as the bench frame holds them: means over the
+    whole frame, ~1.2-2.5 px standard deviations (a 3-sigma radius of 4-8
+    px), bench.py's opacity mixture (50% in [0.55, 0.99], 30% in [0.1,
+    0.55], 20% in [0.02, 0.1]). Returns clustered_scene_2d's layout."""
+    rng = np.random.default_rng(seed)
+    means2d = rng.uniform([0, 0], [width, height], size=(n, 2))
+    sx, sy = rng.uniform(1.2, 2.5, size=n), rng.uniform(1.2, 2.5, size=n)
+    rho = rng.uniform(-0.5, 0.5, size=n)
+    det = (sx * sy) ** 2 * (1 - rho ** 2)
+    conics = np.stack([sy ** 2 / det, -rho * sx * sy / det, sx ** 2 / det], axis=-1)
+    u = rng.uniform(size=n)
+    opacities = np.where(
+        u < 0.5, rng.uniform(0.55, 0.99, n), np.where(u < 0.8, rng.uniform(0.1, 0.55, n), rng.uniform(0.02, 0.1, n))
+    )
+    radii = np.ceil(3.0 * np.maximum(sx, sy)).astype(np.int32)
+    f = lambda x: x.astype(np.float32)
+    return f(means2d), f(conics), f(rng.uniform(size=(n, channels))), f(opacities), f(rng.uniform(1.0, 6.0, n)), radii
 
 
 def flax_linear_vars(rng, shapes, scales=None):
@@ -185,3 +207,10 @@ def train_state_pair(n=150, capacity=180, seed=0, bf16=False, depth=2, width=32,
         step=0, generator=torch.Generator().manual_seed(seed), cfg=TConfig(deform_bf16=bf16, deform_impl="headsfused"), device="cpu",
     )
     return jstate, tstate, field, optimizers
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> (H, W, 3) uint8, by Pillow (the viewer's frames)."""
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
