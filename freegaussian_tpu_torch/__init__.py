@@ -16,7 +16,10 @@ The fourth is the `train` and `train-control` CLI verbs
 overlay, dataparsers, datamanager and checkpoints; with it come the
 compositor's forward-walk backward (`rasterize_cuda.BWD_WALK = "fwd"`) and
 the trunk on a precomputed embedding (the deform field with per-point
-times) as kernels.
+times) as kernels. The fifth is the `cluster`, `eval`, `render` and `export`
+verbs (`preprocess/clustering.py`, `models/metrics.py`,
+`preprocess/render_offline.py`, `data/splat_export.py`), which complete the
+two-stage pipeline.
 
 Entry points default to ``device="cuda"`` and raise when no GPU is present;
 pass ``device="cpu"`` to run the plain PyTorch versions of the kernels.

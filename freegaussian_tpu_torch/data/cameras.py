@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..ops.math import get_viewmat
@@ -70,3 +71,33 @@ class Camera:
     @property
     def position(self) -> torch.Tensor:
         return self.c2w[..., :3, 3]
+
+
+def orbit_camera_path(cameras, num_frames: int = 60, radius=None, height=None):
+    """An orbit camera path around the scene (the `ns-render camera-path`
+    analogue, twin of `freegaussian_tpu/data/cameras.py:orbit_camera_path`):
+    a circle at the cameras' mean height and mean distance from the y axis,
+    looking at the origin, with time sweeping 0 -> 1 across the orbit. The
+    cameras keep the first camera's intrinsics and device."""
+    ref = cameras[0]
+    pos = np.stack([c.position.detach().cpu().numpy() for c in cameras])
+    if radius is None:
+        radius = float(np.linalg.norm(pos[:, [0, 2]], axis=1).mean())
+    if height is None:
+        height = float(pos[:, 1].mean())
+    dev = ref.c2w.device
+    out = []
+    for i in range(num_frames):
+        ang = 2 * np.pi * i / num_frames
+        eye = np.array([radius * np.sin(ang), height, radius * np.cos(ang)], np.float32)
+        fwd = -eye / max(np.linalg.norm(eye), 1e-8)
+        right = np.cross(np.array([0, 1, 0], np.float32), -fwd)
+        right = right / max(np.linalg.norm(right), 1e-8)
+        up = np.cross(-fwd, right)
+        c2w = np.concatenate([np.stack([right, up, -fwd], axis=-1), eye[:, None]], axis=-1).astype(np.float32)
+        out.append(dataclasses.replace(
+            ref,
+            c2w=torch.from_numpy(c2w).to(dev),
+            time=torch.tensor(i / max(num_frames - 1, 1), dtype=torch.float32, device=dev),
+        ))
+    return out

@@ -1,6 +1,7 @@
-"""Minimal PLY point-cloud reader (twin of `freegaussian_tpu/data/ply.py:read_ply_points`):
-ascii and binary little-endian, x/y/z and optional red/green/blue vertex
-properties, the subset the reference uses for SfM seed points."""
+"""Minimal PLY point clouds (twin of `freegaussian_tpu/data/ply.py`): the
+reader takes ascii and binary little-endian, x/y/z and optional
+red/green/blue vertex properties, the subset the reference uses for SfM seed
+points; the writer gives binary little-endian (the cluster visualization)."""
 
 from __future__ import annotations
 
@@ -66,3 +67,25 @@ def read_ply_points(path) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     if all(k in rec for k in ("red", "green", "blue")):
         rgb = np.stack([rec["red"], rec["green"], rec["blue"]], axis=-1).astype(np.uint8)
     return xyz, rgb
+
+
+def write_ply_points(path, xyz: np.ndarray, rgb: Optional[np.ndarray] = None) -> None:
+    """Write a binary little-endian point cloud: float x/y/z and, with `rgb`,
+    uchar red/green/blue (the bytes of `freegaussian_tpu/data/ply.py:write_ply_points`)."""
+    xyz = np.asarray(xyz, np.float32)
+    n = xyz.shape[0]
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}"]
+    header += [f"property float {c}" for c in "xyz"]
+    if rgb is not None:
+        rgb = np.asarray(rgb, np.uint8)
+        header += [f"property uchar {c}" for c in ("red", "green", "blue")]
+    header += ["end_header"]
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        if rgb is None:
+            f.write(xyz.astype("<f4").tobytes())
+        else:
+            rec = np.empty(n, dtype=[("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("red", "u1"), ("green", "u1"), ("blue", "u1")])
+            rec["x"], rec["y"], rec["z"] = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+            rec["red"], rec["green"], rec["blue"] = rgb[:, 0], rgb[:, 1], rgb[:, 2]
+            f.write(rec.tobytes())

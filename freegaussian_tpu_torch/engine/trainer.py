@@ -294,17 +294,19 @@ class Trainer:
         return {"step": step, "eval": "image", "eval_idx": idx, "psnr": float(psnr(rgb, gt)), "ssim": float(ssim(rgb, gt))}
 
     def eval_all(self, max_images: Optional[int] = None, dump_dir: Optional[Path] = None) -> Dict[str, float]:
-        """PSNR / SSIM and rays per second over the eval split (ref eval loop,
-        freegaussian_pipeline.py:103-172). LPIPS needs pretrained weights the
-        port has no network for: it reports NaN with lpips_available False,
-        as the JAX package does without its local weights file. `dump_dir`
-        writes gt|pred side-by-side PNGs per image (ref :144-147)."""
+        """PSNR / SSIM / LPIPS and rays per second over the eval split (ref
+        eval loop, freegaussian_pipeline.py:103-172). LPIPS runs on the
+        device when its local weights file exists (`models/metrics.py`);
+        without it the report carries NaN with lpips_available False, as the
+        JAX package's does. `dump_dir` writes gt|pred side-by-side PNGs per
+        image (ref :144-147)."""
+        from ..models.metrics import lpips
         from ..viewer.png import encode_png
 
         dm = self.eval_datamanager or self.datamanager
         if dump_dir is not None:
             Path(dump_dir).mkdir(parents=True, exist_ok=True)
-        psnrs, ssims = [], []
+        psnrs, ssims, lpipss = [], [], []
         t0 = time.time()
         n_pix = count = 0
         for camera, batch in dm.eval_frames():
@@ -312,6 +314,9 @@ class Trainer:
             gt = batch["image"][..., :3]
             psnrs.append(float(psnr(rgb, gt)))
             ssims.append(float(ssim(rgb, gt)))
+            lp = lpips(rgb, gt)
+            if lp is not None:
+                lpipss.append(lp)
             if dump_dir is not None:
                 pair = torch.cat([gt, rgb], dim=1).clamp(0, 1).cpu().numpy()
                 (Path(dump_dir) / f"eval_{count:04d}.png").write_bytes(encode_png((pair * 255).astype(np.uint8)))
@@ -326,8 +331,8 @@ class Trainer:
             "num_rays_per_sec": n_pix / wall,
             "fps": count / wall,
             "gaussian_count": int(self.state.alive.sum()),
-            "lpips": float("nan"),
-            "lpips_available": False,
+            "lpips": float(np.mean(lpipss)) if lpipss else float("nan"),
+            "lpips_available": bool(lpipss),
         }
 
     # ------------------------------------------------------------------

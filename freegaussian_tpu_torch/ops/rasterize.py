@@ -14,9 +14,11 @@ CPU. Everything is differentiable in the Gaussians' attributes.
 `means2d_sink` (N, 2), zeros, collects the AbsGS absgrad as its gradient:
 on the tile path the per-kernel-tile |d means2d| summed per Gaussian; with
 `backend="reference"` it rides means2d, giving the signed gradient (as the
-JAX package's oracle backend does). The arguments that serve the clustering
-and multi-chip paths (`packed`, `gather_axis`, a band `tile_origin_y`) raise
-NotImplementedError until the slices that port them.
+JAX package's oracle backend does). `packed=True` also returns the
+per-intersection arrays in (tile, depth) order (`gaussian_ids`,
+`isect_means2d`, `isect_depths`, `tile_ids`), exactly `num_isects` of them.
+The arguments of the multi-chip path (`gather_axis`, a band
+`tile_origin_y`) raise NotImplementedError until the slice that ports it.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from .projection import project_gaussians
 from .rasterize_cuda import rasterize_pixels
 from .rasterize_ref import ALPHA_THRESHOLD, rasterize_pixels_reference, tile_bounds
 from .sh import sh_colors_for_camera
+from .tiles import build_intersections
 
 
 def tighten_radii(radii: torch.Tensor, opacities: torch.Tensor) -> torch.Tensor:
@@ -104,8 +107,6 @@ def rasterization(
         raise ValueError(f"Unknown render_mode: {render_mode}")
     if backend not in ("auto", "pallas", "reference"):
         raise ValueError(f"Unknown backend: {backend}")
-    if packed:
-        raise NotImplementedError("packed=True comes with the clustering slice of the port")
     if gather_axis is not None or tile_origin_y != 0:
         raise NotImplementedError("gather_axis and band rendering come with the multi-GPU slice of the port")
 
@@ -172,6 +173,18 @@ def rasterization(
         depth = render[..., -1:] / torch.clamp(alpha, min=1e-10)
         render = torch.cat([render[..., :-1], depth], dim=-1)
 
+    packed_info = {}
+    if packed:
+        # the binning of the 3-sigma radii, as the JAX package's packed mode
+        # bins them; the gathers go through the differentiable means2d / depths
+        isect = build_intersections(means2d.detach(), proj.radii, proj.depths.detach(), width, height, tile_size)
+        ids = isect.gauss_ids.long()
+        packed_info = dict(
+            gaussian_ids=isect.gauss_ids, isect_means2d=means2d[ids], isect_depths=proj.depths[ids],
+            tile_ids=isect.tile_ids,
+        )
+        num_isects = isect.num_isects
+
     info = RasterizeInfo(
         means2d=means2d,
         radii=proj.radii,
@@ -179,5 +192,6 @@ def rasterization(
         conics=proj.conics,
         compensations=proj.compensations,
         num_isects=num_isects,
+        **packed_info,
     )
     return render[None], alpha[None], info

@@ -721,11 +721,12 @@ def _frame_args(device, channels, tile_size, frame, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("frame", ["bench", "sparse"])
 @pytest.mark.parametrize("tile_size", [16, 32])
-@pytest.mark.parametrize("channels", [3, 5])
+@pytest.mark.parametrize("channels", [1, 3, 5])
 def test_cuda_fwd_quadrants_match_plain(cuda_device, channels, tile_size, frame):
     """livecnt and t_final bit-equal to the plain version and to the plain
     model of the quadrant design (every product and sum rounds alike); color
-    and alpha within atol 2e-5 (summation order)."""
+    and alpha within atol 2e-5 (summation order). One channel is the cluster
+    vote's expected-depth frame."""
     args = _frame_args(cuda_device, channels, tile_size, frame, channels)
     before = rasterize_cuda.LAUNCHES["rasterize_fwd"]
     got = rasterize_tiles(*args)

@@ -214,3 +214,63 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     from PIL import Image
 
     return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def lpips_weights(seed=0):
+    """Seeded AlexNet-LPIPS weights in the npz layout both packages read
+    (`conv{i}_w` (O, I, Kh, Kw), `conv{i}_b`, `lin{i}`): conv weights
+    N(0, 1 / fan_in), biases N(0, 0.05^2), calibration U(0, 0.2). Not a
+    quality metric: a fixed network to hold the two LPIPS forwards together."""
+    from freegaussian_tpu_torch.models.metrics import ALEX_CONVS
+
+    rng = np.random.default_rng(seed)
+    weights, in_ch = {}, 3
+    for i, (out_ch, k, _, _) in enumerate(ALEX_CONVS):
+        weights[f"conv{i}_w"] = rng.normal(scale=1.0 / np.sqrt(in_ch * k * k), size=(out_ch, in_ch, k, k)).astype(np.float32)
+        weights[f"conv{i}_b"] = rng.normal(scale=0.05, size=(out_ch,)).astype(np.float32)
+        weights[f"lin{i}"] = rng.uniform(0, 0.2, size=(out_ch,)).astype(np.float32)
+        in_ch = out_ch
+    return weights
+
+
+def vote_boundary_rows(params, alive, arrs, deform=None, low=-0.1, high=1.0, min_alpha=0.0):
+    """(N,) bool: the live rows whose cluster vote in the frame of camera
+    `arrs` sits on a decision boundary, from the JAX package's values (its
+    dense oracle): a projected center coordinate within 1e-4 px of a
+    rounding boundary (x.5) or of the frame's edge; a depth difference
+    within 1e-5 * d_gaussian / alpha of a window edge (alpha the center
+    pixel's, at least 1e-6); with `min_alpha`, the center pixel's alpha
+    within 1e-5 of it. `deform` is (flax DeformField, its variables)."""
+    import jax
+    import jax.numpy as jnp
+
+    from freegaussian_tpu.models.fields import apply_se3_deform
+    from freegaussian_tpu.ops.rasterize import rasterization
+
+    W, H = arrs["width"], arrs["height"]
+    cam = jax_camera(arrs)
+    means = jnp.asarray(params["means"])
+    if deform is not None:
+        field, dvars = deform
+        d_xyz, _, _ = field.apply(dvars, means, cam.time.reshape(1, 1))
+        means = apply_se3_deform(means, d_xyz)
+    render, alpha, info = rasterization(
+        means, jnp.asarray(params["quats"]), jnp.exp(jnp.asarray(params["scales"])),
+        jax.nn.sigmoid(jnp.asarray(params["opacities"])[..., 0]), jnp.asarray(params["features_dc"]),
+        cam.viewmat[None], cam.K[None], W, H, render_mode="ED", sh_degree=None, alive=jnp.asarray(alive),
+        backend="reference",
+    )
+    xy = np.asarray(info.means2d, np.float64)
+    d = np.asarray(info.depths, np.float64)
+    xi = np.clip(np.round(xy[:, 0]).astype(np.int64), 0, W - 1)
+    yi = np.clip(np.round(xy[:, 1]).astype(np.int64), 0, H - 1)
+    a_pix = np.maximum(np.asarray(alpha)[0, yi, xi, 0].astype(np.float64), 1e-6)
+    diff = np.asarray(render)[0, yi, xi, 0].astype(np.float64) - d
+    frac = xy - np.floor(xy)
+    near = (np.abs(frac - 0.5) < 1e-4).any(-1)
+    near |= (np.abs(xy) < 1e-4).any(-1) | (np.abs(xy - np.array([W, H])) < 1e-4).any(-1)
+    tol = 1e-5 * np.abs(d) / a_pix
+    near |= (np.abs(diff - low * d) < tol) | (np.abs(diff - high * d) < tol)
+    if min_alpha > 0.0:
+        near |= np.abs(a_pix - min_alpha) < 1e-5
+    return near & np.asarray(alive)
