@@ -8,9 +8,11 @@ Drives the port's stage-1 serving path (reference checkpoint ->
 stage-2 control path in the `deform_impl="pallas"` configuration (the
 slider viewer over a stage-2 checkpoint, and `make_control_train_step`),
 the `train` and `train-control` CLI verbs over a dataset on disk, the
-`viewer` verb over the checkpoints those verbs write, and the `cluster`,
+`viewer` verb over the checkpoints those verbs write, the `cluster`,
 `eval`, `render` and `export` verbs that complete the two-stage pipeline,
-with every kernel built from this checkout. Phases, printed as each ends:
+and the real-capture front end (`interflow`, undistortion, the LiveScene
+real and CoNeRF parsers, polygon masks), with every kernel built from this
+checkout. Phases, printed as each ends:
 
   1. device   the card's name and power limit, as nvidia-smi gives them
   2. build    nvcc builds every kernel source, one process per source, all
@@ -133,6 +135,32 @@ with every kernel built from this checkout. Phases, printed as each ends:
               parameters) and as a reference checkpoint (loaded by the port,
               it renders the trainer's frame within 1e-6); eval fps, cluster
               ms per key frame and render ms per frame beside the card
+ 20. captures the real-capture front end (`captures` lines): an 8-frame
+              LiveScene real capture at 640x480 in nerfstudio's layout (JPEG,
+              per-frame intrinsics, a Brown distortion with k1, k2, p1, p2
+              non-zero, M = 2 masks, foreground masks, sparse_pc.ply of every
+              fourth bench mean), the bench scene moved into the frame
+              parse_real gives it, rendered through each pinhole camera and
+              distorted by the port's undistort_points; `undistort_frame` of a
+              frame on the card against the CPU (camera, ROI and every array
+              bit-equal; ms a frame); the `interflow` verb in both forms from
+              the scene's depth renders and seeded optical flow, against the
+              CPU (1e-4 of the largest flow); the `train` verb on it
+              (configs/real/base.yaml, warm-up 0, 24 steps, one eval): setup
+              and its undistortion share (each call's span on the loader
+              threads, and their union), step ms against phase 7's, rows 1,
+              2, 8 and 9 launched; `eval` of the moved bench scene against
+              the undistorted frames (PSNR at least 25); an 8-frame CoNeRF
+              capture at 1296x968 read at rgb/2x (648x484: partial tile rows
+              and columns) with polygon annotations on 3 key frames and
+              values.yaml: 10 `train` steps (configs/conerf/base.yaml) and
+              `cluster` over its polygon masks with the bench scene, the vote
+              against the plain compositor's. On each capture's own frame
+              (639x479 undistorted with cx 309.3; 648x484), the bench scene
+              in its frame: the compositor forward and backward against their
+              plain versions at every (C, tile) the verbs' calls took at that
+              size, and the deform field, with phase 4's budgets
+              (`captures kernels` lines)
 
 Then one JSON line of kernel records and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -581,16 +609,13 @@ def phase_scene(tmp: Path):
     return path, model
 
 
-def phase_kernels(model) -> dict:
-    """Each kernel against its plain version on the main path's inputs."""
-    import torch
-
+def pixel_stage_inputs(model, camera):
+    """The pixel stage's inputs (means2d, conics, colors RGB+ED, opacities,
+    depths, radii; f32) and the deform field's arguments of `model`'s
+    serving frame at `camera`."""
     from freegaussian_tpu_torch.models import fields as fields_mod
     from freegaussian_tpu_torch.ops import rasterize as rasterize_mod
-    from freegaussian_tpu_torch.ops.rasterize_cuda import rasterize_tiles, rasterize_tiles_plain
-    from freegaussian_tpu_torch.ops.tiles import build_intersections
 
-    width, height = SERVE_WH
     pixel_stage = rasterize_mod.rasterize_pixels
     field = fields_mod.deform_field
     captured, field_args = [], []
@@ -606,21 +631,49 @@ def phase_kernels(model) -> dict:
     rasterize_mod.rasterize_pixels = capture
     fields_mod.deform_field = capture_field
     try:
-        model(bench_camera(width, height, DEVICE))
+        model(camera)
     finally:
         rasterize_mod.rasterize_pixels = pixel_stage
         fields_mod.deform_field = field
-    m2d, con, chans, opac, depths, radii = (a.float().contiguous() for a in captured[0][:6])
-    n = m2d.shape[0]
-    assert chans.shape == (n, 4), chans.shape  # RGB+ED at serving time
+    inputs = tuple(a.float().contiguous() for a in captured[0][:6])
+    n = inputs[0].shape[0]
+    assert inputs[2].shape == (n, 4), inputs[2].shape  # RGB+ED at serving time
+    return inputs, field_args[0]
 
+
+def _colors(chans, motion, C: int):
+    """The compositor's C channels in the model's layouts, from the serving
+    frame's RGB+ED and a 2-channel screen motion: ED alone (the cluster
+    vote's frame: depth x weight), RGB, RGB+ED, and RGB or RGB+ED with the
+    motion (training with the flow losses)."""
+    import torch
+
+    layouts = {1: [chans[:, 3:4]], 3: [chans[:, :3]], 4: [chans], 5: [chans[:, :3], motion], 6: [chans, motion]}
+    return torch.cat(layouts[C], dim=1).contiguous()
+
+
+def _check_forward(inputs, width: int, height: int, tiles, channels, frame: str = "bench", timed: bool = True):
+    """The compositor forward (row 1) against its plain version at each tile
+    size and channel count: the color within KERNEL_ATOL of its largest
+    value, alpha within KERNEL_ATOL, livecnt and t_final bit for bit, and
+    two calls bit-equal. `timed` adds the kernel's and the plain version's
+    ms and the bound (its pair count from the first tile size's livecnt).
+    Returns (rows, that pair count)."""
+    import torch
+
+    from freegaussian_tpu_torch.ops.rasterize_cuda import rasterize_tiles, rasterize_tiles_plain
+    from freegaussian_tpu_torch.ops.tiles import build_intersections
+
+    m2d, con, chans, opac, depths, radii = inputs
+    n = m2d.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(SEED + 8)
+    motion = (torch.randn(n, 2, generator=g) * 2.0).to(m2d.device)
     rows = []
-    pairs16 = None
-    for tile in (16, 32):  # 16 first: its livecnt sets the bound's pair count
+    pairs = None
+    for tile in tiles:
         isect = build_intersections(m2d, radii, depths, width, height, tile)
-        for C in (1, 3, 4):
-            # C = 1: the ED channel alone (the cluster vote's frame: depth x weight, up to ~8 here)
-            col = (chans[:, 3:4] if C == 1 else chans[:, :C]).contiguous()
+        for C in channels:
+            col = _colors(chans, motion, C)
             args = (m2d, con, col, opac, radii, isect.gauss_ids, isect.tile_offsets, width, height, tile)
             got = rasterize_tiles(*args)
             again = rasterize_tiles(*args)
@@ -636,44 +689,56 @@ def phase_kernels(model) -> dict:
             live_diff = int((got[2] != want[2]).sum())
             tfinal_diff = int((got[3] != want[3]).sum())
             bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
-            if pairs16 is None:
-                pairs16 = int(got[2].long().sum())
-            k_ms = cuda_ms(lambda: rasterize_tiles(*args), reps=25)
-            p_ms = cuda_ms(lambda: rasterize_tiles_plain(*args), reps=3, warmup=1)
-            bound_ms, bound_by = compositor_bound(n, C, isect.num_isects, isect.num_tiles, width * height, pairs16)
+            if pairs is None:
+                pairs = int(got[2].long().sum())
             row = dict(
-                tile=tile, C=C, num_isects=isect.num_isects, max_abs_err=err, color_scale=color_scale,
-                color_err=color_err, alpha_err=alpha_err, pixels_over_1e6_of_scale=over,
-                livecnt_mismatch=live_diff, t_final_mismatch=tfinal_diff, bit_equal=bit_equal,
-                ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
+                frame=frame, width=width, height=height, tile=tile, C=C, num_isects=isect.num_isects,
+                max_abs_err=err, color_scale=color_scale, color_err=color_err, alpha_err=alpha_err,
+                pixels_over_1e6_of_scale=over, livecnt_mismatch=live_diff, t_final_mismatch=tfinal_diff,
+                bit_equal=bit_equal,
             )
+            if timed:
+                row["ms"] = cuda_ms(lambda: rasterize_tiles(*args), reps=25)
+                row["plain_ms"] = cuda_ms(lambda: rasterize_tiles_plain(*args), reps=3, warmup=1)
+                row["bound_ms"], row["bound_by"] = compositor_bound(n, C, isect.num_isects, isect.num_tiles,
+                                                                    width * height, pairs)
             print("kernel rasterize_fwd " + json.dumps(row))
             if not (color_err <= KERNEL_ATOL * color_scale and alpha_err <= KERNEL_ATOL):
-                raise AssertionError(f"kernel vs plain at tile {tile}, C={C}: color max |diff| {color_err} > "
+                raise AssertionError(f"kernel vs plain at tile {tile}, C={C} ({frame}): color max |diff| {color_err} > "
                                      f"{KERNEL_ATOL} x {color_scale}, or alpha {alpha_err} > {KERNEL_ATOL}")
             if live_diff or tfinal_diff:
-                raise AssertionError(f"kernel vs plain at tile {tile}, C={C}: livecnt differs at {live_diff} pixels, "
-                                     f"t_final at {tfinal_diff}")
+                raise AssertionError(f"kernel vs plain at tile {tile}, C={C} ({frame}): livecnt differs at {live_diff} "
+                                     f"pixels, t_final at {tfinal_diff}")
             if not bit_equal:
-                raise AssertionError(f"rasterize_fwd at tile {tile}, C={C}: two calls on the same inputs differ")
+                raise AssertionError(f"rasterize_fwd at tile {tile}, C={C} ({frame}): two calls on the same inputs differ")
             rows.append(row)
+    return rows, pairs
+
+
+def phase_kernels(model) -> dict:
+    """Each kernel against its plain version on the main path's inputs."""
+    width, height = SERVE_WH
+    inputs, field_args = pixel_stage_inputs(model, bench_camera(width, height, DEVICE))
+    # 16 first: its livecnt sets the bound's pair count
+    rows, pairs16 = _check_forward(inputs, width, height, (16, 32), (1, 3, 4))
     print(f"kernel pairs evaluated (sum of livecnt at tile 16, {width}x{height}): {pairs16}; library_ms: null")
-    bwd_rows = _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16)
+    bwd_rows = _check_backward(*inputs, width, height, pairs16)
     return {
         "rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows),
         "bwd_rows": bwd_rows,
         "bwd_max_abs_err": max(r["max_abs_err"] for r in bwd_rows if r["walk"] == "rev"),
         "bwd_fwd_max_abs_err": max(r["max_abs_err"] for r in bwd_rows if r["walk"] == "fwd"),
-        "deform": _check_deform(*field_args[0]),
+        "deform": _check_deform(*field_args),
     }
 
 
-def _check_deform(x, t_row, ws, bs, head_w, head_b) -> dict:
+def _check_deform(x, t_row, ws, bs, head_w, head_b, timed: bool = True) -> dict:
     """The fused deform field's kernels against their plain versions on the
     serving call's inputs (the scene's 100k means, its time row at t = 0.5,
     its weights): the forward in training mode (it also writes the saved
     embedding and activations), then the backward from those same saved
-    tensors with a seeded N(0, 1) cotangent on the 13 head lanes."""
+    tensors with a seeded N(0, 1) cotangent on the 13 head lanes. `timed`
+    adds the ms, the plain ms, the bounds and the backward's parts."""
     import torch
 
     from freegaussian_tpu_torch.ops import mlp_cuda as mc
@@ -694,12 +759,15 @@ def _check_deform(x, t_row, ws, bs, head_w, head_b) -> dict:
         fwd = dict(
             n=n, y_max_rel=y_max, y_norm_rel=y_norm, max_abs_err=float((y - yp).abs().max()),
             emb_mismatch=int((emb != embp).sum()), act_mismatch=int((acts[:, :n] != actsp[:, :n]).sum()),
-            ms=cuda_ms(lambda: mc.deform_field_fwd(*fargs), reps=25),
-            serve_ms=cuda_ms(lambda: mc.deform_field_fwd(*fargs[:-1], False), reps=25),
-            plain_ms=cuda_ms(lambda: mc.deform_field_fwd_plain(*fargs), reps=5),
         )
-        fwd["bound_ms"], fwd["bound_by"] = field_bound(n, in_ch, True, False, True)
-        fwd["serve_bound_ms"], fwd["serve_bound_by"] = field_bound(n, in_ch, False, False, True)
+        if timed:
+            fwd.update(
+                ms=cuda_ms(lambda: mc.deform_field_fwd(*fargs), reps=25),
+                serve_ms=cuda_ms(lambda: mc.deform_field_fwd(*fargs[:-1], False), reps=25),
+                plain_ms=cuda_ms(lambda: mc.deform_field_fwd_plain(*fargs), reps=5),
+            )
+            fwd["bound_ms"], fwd["bound_by"] = field_bound(n, in_ch, True, False, True)
+            fwd["serve_bound_ms"], fwd["serve_bound_by"] = field_bound(n, in_ch, False, False, True)
         print("kernel deform_fwd " + json.dumps(fwd))
         if not (torch.isfinite(y).all() and y_max <= DEFORM_OUT_MAX_REL and y_norm <= DEFORM_OUT_NORM_REL):
             raise AssertionError(f"deform_fwd vs plain: max rel {y_max}, norm rel {y_norm}")
@@ -712,14 +780,19 @@ def _check_deform(x, t_row, ws, bs, head_w, head_b) -> dict:
         want = mc.deform_field_bwd_plain(*bargs)
         torch.cuda.synchronize()
         errs = {name: _rel_errs(a, b) for name, a, b in zip(("dx", "d_emb", "dW", "dbias", "dhead_w", "dhead_b"), got, want)}
-        bwd = dict(
-            n=n, errs=errs, max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, want)),
-            ms=cuda_ms(lambda: mc.deform_field_bwd(*bargs), reps=25),
-            plain_ms=cuda_ms(lambda: mc.deform_field_bwd_plain(*bargs), reps=5),
-        )
-        bwd["bound_ms"], bwd["bound_by"] = field_bound(n, in_ch, True, True, True)
-        bwd["parts"] = field_bwd_parts("deform_bwd", mc.deform_field_bwd, bargs,
-                                       (True, x, dy, fargs[2], fargs[4], emb, acts, 1, x_lanes))
+        bwd = dict(n=n, errs=errs, max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, want)))
+        if timed:
+            bwd.update(
+                ms=cuda_ms(lambda: mc.deform_field_bwd(*bargs), reps=25),
+                plain_ms=cuda_ms(lambda: mc.deform_field_bwd_plain(*bargs), reps=5),
+            )
+            bwd["bound_ms"], bwd["bound_by"] = field_bound(n, in_ch, True, True, True)
+            bwd["parts"] = field_bwd_parts("deform_bwd", mc.deform_field_bwd, bargs,
+                                           (True, x, dy, fargs[2], fargs[4], emb, acts, 1, x_lanes))
+        else:
+            bwd["bit_equal"] = all(torch.equal(a, b) for a, b in zip(got, mc.deform_field_bwd(*bargs)))
+            if not bwd["bit_equal"]:
+                raise AssertionError("deform_bwd: two calls on the same inputs differ")
         print("kernel deform_bwd " + json.dumps(bwd))
         for name, (mx, nm) in errs.items():
             if not (mx <= DEFORM_GRAD_MAX_REL and nm <= DEFORM_GRAD_NORM_REL):
@@ -729,7 +802,8 @@ def _check_deform(x, t_row, ws, bs, head_w, head_b) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
-def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16):
+def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16, frame: str = "bench",
+                    tiles=(16, 32), channels=(3, 5)):
     """The backward kernels against their plain version (autograd through
     the plain compositor, the same function for both walks) on the serving
     scene's pixel-stage inputs: C = 3 (RGB) and C = 5 (RGB + a seeded
@@ -741,7 +815,10 @@ def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16
     sparse frame (every tenth Gaussian), with its largest relative error
     reported; its rows
     that are exactly zero (slots past every pixel's termination) must be
-    row 2's, which reads the forward's own live counts."""
+    row 2's, which reads the forward's own live counts. Another `frame`
+    (a capture's own frame shape, with its `tiles` and `channels`) checks
+    the reverse walk alone, with no plain time or bound: the same budget,
+    and two calls bit-equal."""
     import torch
 
     from freegaussian_tpu_torch.ops.rasterize_cuda import (
@@ -763,14 +840,16 @@ def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16
     g = torch.Generator(device="cpu").manual_seed(SEED + 7)
     flow = (torch.randn(n, 2, generator=g) * 2.0).to(m2d.device)
     rows = []
-    frames = [("bench", torch.arange(n, device=m2d.device), (16, 32), (3, 5))]
-    frames.append(("sparse", torch.arange(0, n, 10, device=m2d.device), (16, 32), (5,)))
+    bench = frame == "bench"
+    frames = [(frame, torch.arange(n, device=m2d.device), tiles, channels)]
+    if bench:
+        frames.append(("sparse", torch.arange(0, n, 10, device=m2d.device), (16, 32), (5,)))
     for frame, keep, tiles, channels in frames:
         fm2d, fcon, fchans, fopac, fdepths, fradii, fflow = (a[keep].contiguous() for a in (m2d, con, chans, opac, depths, radii, flow))
         for tile in tiles:
             isect = build_intersections(fm2d, fradii, fdepths, width, height, tile)
             for C in channels:
-                col = torch.cat([fchans[:, :3], fflow], dim=1)[:, :C].contiguous()
+                col = _colors(fchans, fflow, C)
                 fwd_args = (fm2d, fcon, col, fopac, fradii, isect.gauss_ids, isect.tile_offsets)
                 color, alpha, livecnt, t_final = rasterize_tiles(*fwd_args, width, height, tile)
                 g_color = torch.randn(height, width, C, generator=g).to(m2d.device)
@@ -780,16 +859,16 @@ def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16
                 fargs = (*fwd_args, livecnt, r_total, g_color, g_alpha, width, height, tile)
                 pargs = (*fwd_args, g_color, g_alpha, width, height, tile)
                 got = rasterize_tiles_bwd(*kargs)
-                got_f = rasterize_tiles_bwd_fwd(*fargs)
+                walks = [] if frame == "sparse" else [("rev", got, kargs, rasterize_tiles_bwd)]
+                if bench:
+                    walks.append(("fwd", rasterize_tiles_bwd_fwd(*fargs), fargs, rasterize_tiles_bwd_fwd))
                 torch.cuda.synchronize()
                 want = rasterize_tiles_bwd_plain(*pargs)
                 torch.cuda.synchronize()
                 # the plain backward is autograd over a Python loop (seconds a call): two runs, no warm-up
                 p_ms = cuda_ms(lambda: rasterize_tiles_bwd_plain(*pargs), reps=2, warmup=0) if frame == "bench" else None
                 bound_ms, bound_by = backward_bound(fm2d.shape[0], C, isect.num_isects, isect.num_tiles, width * height, pairs16) if frame == "bench" else (None, None)
-                for walk, rows_k, args, fn in (("rev", got, kargs, rasterize_tiles_bwd), ("fwd", got_f, fargs, rasterize_tiles_bwd_fwd)):
-                    if frame == "sparse" and walk == "rev":
-                        continue
+                for walk, rows_k, args, fn in walks:
                     name = "rasterize_bwd" if walk == "rev" else "rasterize_bwd_fwd"
                     diff, outside, rel = budget(rows_k, want)
                     row = dict(
@@ -802,6 +881,8 @@ def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16
                         row.update(_bwd_parts(name, fwd_args, livecnt, args[8], g_color, g_alpha, width, height, tile, rows_k))
                         if walk == "rev" and tile == 32 and C == 5:
                             row["reduction"] = _reduction_error(rows_k, isect)
+                    elif not bench:
+                        row.update(width=width, height=height, bit_equal=bool(torch.equal(fn(*args), rows_k)))
                     if walk == "fwd":
                         row["max_abs_diff_to_rev_kernel"] = float((rows_k - got).abs().max())
                         row["outside_budget_to_rev_kernel"] = budget(rows_k, got)[1]
@@ -1905,28 +1986,31 @@ def seeded_lpips_weights(path: Path, seed: int = SEED + 61) -> Path:
     return path
 
 
-def bench_scene_checkpoint(trainer, model, dest: Path) -> Path:
+def bench_scene_checkpoint(trainer, model, dest: Path, transform=None, scale: float = 1.0) -> Path:
     """The bench scene (phase 3's model: its Gaussians and deform field, at
     its step) moved into the dataset's frame by the dataparser's orient and
-    center transform, written through the train verb's state (capacity
-    VERB_CAPACITY) as a checkpoint directory of the port. Its scales are
-    isotropic, so its rotations need no turning; the deform field and the
-    SH colors stay as they were. Phase 13 rendered the dataset from this
-    scene, so the cluster vote finds it in front of the cameras, where the
-    train verb's 30 steps from random Gaussians leave the vote all but
-    empty."""
+    center transform (`transform`, by default the trainer's) and scale
+    (means times `scale`, log scales plus log `scale`), written through the
+    verb's trainer state (capacity VERB_CAPACITY) as a checkpoint directory
+    of the port. Its scales are isotropic, so its rotations need no
+    turning; the deform field and the SH colors stay as they were. Phase 13
+    rendered the dataset from this scene, so the cluster vote finds it in
+    front of the cameras, where the train verb's 30 steps from random
+    Gaussians leave the vote all but empty."""
     import torch
 
     from freegaussian_tpu_torch.engine.checkpoints import save_checkpoint
 
-    T = torch.as_tensor(trainer.parsed.dataparser_transform, device=DEVICE)
+    T = torch.as_tensor(trainer.parsed.dataparser_transform if transform is None else transform, device=DEVICE)
     st = trainer.state
     n = int(model.alive.shape[0])
     with torch.no_grad():
         for name, p in st.params.items():
             src = model.params[name]
             if name == "means":
-                src = src @ T[:, :3].T + T[:, 3]
+                src = (src @ T[:, :3].T + T[:, 3]) * scale
+            elif name == "scales":
+                src = src + float(np.log(scale))
             p.zero_()
             p[:n] = src
         st.alive.zero_()
@@ -1939,16 +2023,18 @@ def bench_scene_checkpoint(trainer, model, dest: Path) -> Path:
 
 def _run_verb(argv) -> dict:
     """`cli.main(argv)` in process, the launch counts zeroed just before and
-    read just after; the channel count of every compositor call, and the
-    verb's setup seconds (building its trainer and loading the checkpoint)
-    apart from its work seconds (synced host clocks)."""
+    read just after; the channel count of every compositor call, the set of
+    (walk, C, width, height, tile) of its forward ("fwd") and backward
+    ("bwd") calls, and the verb's setup seconds (building its trainer and
+    loading the checkpoint) apart from its work seconds (synced host
+    clocks)."""
     import torch
 
     from freegaussian_tpu_torch import cli
     from freegaussian_tpu_torch.ops import rasterize_cuda
 
-    real_build, real_tiles = cli._build_trainer, rasterize_cuda.rasterize_tiles
-    setup, channels = [], []
+    real_build, real_tiles, real_bwd = cli._build_trainer, rasterize_cuda.rasterize_tiles, rasterize_cuda.rasterize_tiles_bwd
+    setup, channels, shapes = [], [], set()
 
     def build(*args, **kwargs):
         t0 = time.perf_counter()
@@ -1959,9 +2045,14 @@ def _run_verb(argv) -> dict:
 
     def tiles(*args, **kwargs):
         channels.append(int(args[2].shape[1]))
+        shapes.add(("fwd", int(args[2].shape[1]), *args[7:10]))
         return real_tiles(*args, **kwargs)
 
-    cli._build_trainer, rasterize_cuda.rasterize_tiles = build, tiles
+    def bwd(*args, **kwargs):
+        shapes.add(("bwd", int(args[2].shape[1]), *args[11:14]))
+        return real_bwd(*args, **kwargs)
+
+    cli._build_trainer, rasterize_cuda.rasterize_tiles, rasterize_cuda.rasterize_tiles_bwd = build, tiles, bwd
     torch.cuda.synchronize()
     zero_launches()
     t0 = time.perf_counter()
@@ -1969,9 +2060,9 @@ def _run_verb(argv) -> dict:
         trainer = cli.main([str(a) for a in argv])
         torch.cuda.synchronize()
     finally:
-        cli._build_trainer, rasterize_cuda.rasterize_tiles = real_build, real_tiles
+        cli._build_trainer, rasterize_cuda.rasterize_tiles, rasterize_cuda.rasterize_tiles_bwd = real_build, real_tiles, real_bwd
     wall = time.perf_counter() - t0
-    return {"trainer": trainer, "launches": launches(), "channels": channels, "setup_s": setup[0],
+    return {"trainer": trainer, "launches": launches(), "channels": channels, "shapes": shapes, "setup_s": setup[0],
             "work_s": wall - setup[0]}
 
 
@@ -2178,6 +2269,470 @@ def phase_pipeline(tmp: Path, data: Path, verb: dict, model, card: str) -> dict:
     return {"launches": total, **result}
 
 
+# Phase 20, the real-capture front end: an 8-frame LiveScene-real capture at
+# 640x480 with a Brown distortion (k4 = 0) and per-frame intrinsics, and an
+# 8-frame CoNeRF capture at 1296x968 read at rgb/2x (648x484), both rendered
+# from the bench scene; the train verbs start from CAPTURE_SEEDS seed points
+# (every fourth bench mean)
+CAPTURE_FRAMES = 8
+CAPTURE_DISTORTION = {"k1": -0.12, "k2": 0.03, "k3": 0.0, "k4": 0.0, "p1": 0.001, "p2": -0.0015}
+CAPTURE_SEED_STRIDE = 4
+CAPTURE_STEPS = 24
+CAPTURE_EVAL_AT = 16
+CONERF_STEPS = 10
+CONERF_KEY_FRAMES = [0, 3, 6]
+CAPTURE_JPEG_QUALITY = 95
+INTERFLOW_RTOL = 1e-4  # card against CPU, of the largest |flow|
+# the bench scene moved into the real capture's frame, evaluated against its
+# undistorted frames (JPEG q95, distorted and undistorted bilinearly):
+# misplaced cameras or a wrong crop give ~10-15 dB
+CAPTURE_MIN_PSNR = 25.0
+
+
+def _capture_camera(c2w, fx, fy, cx, cy, t, width, height):
+    import torch
+
+    from freegaussian_tpu_torch.data.cameras import Camera
+
+    f = lambda v: torch.tensor(np.asarray(v, np.float32), device=DEVICE)
+    return Camera(c2w=f(c2w), fx=f(fx), fy=f(fy), cx=f(cx), cy=f(cy), time=f(t), width=width, height=height)
+
+
+def write_real_capture(tmp: Path, model) -> dict:
+    """A LiveScene real capture in nerfstudio's layout at SERVE_WH:
+    transforms.json (per-frame fl_x / fl_y / cx / cy and Brown distortion,
+    `mask_path`), JPEG frames, `masks/{fid}.npy` (M = 2, seeded boxes),
+    foreground PNGs, `sparse_pc.ply` (every CAPTURE_SEED_STRIDE-th bench
+    mean), `depth/{stem}.npy` and seeded `opticalflow/{stem}.npy` (frame 5
+    has none: zero flow). The frames are the bench scene, moved into the
+    dataset's frame as `parse_real` will place it (its orient, center and
+    auto-scale of these poses), rendered through each frame's pinhole camera
+    and then distorted by the frame's model: each distorted pixel samples
+    the pinhole frame (bilinear) where the port's `undistort_points` puts
+    it. The depth maps are the port's `render_depth_maps` of the same scene
+    at the same pinhole cameras."""
+    import copy
+
+    import torch
+    from PIL import Image
+
+    from freegaussian_tpu_torch.data import undistort as ud
+    from freegaussian_tpu_torch.data.dataparsers import auto_orient_and_center_poses, auto_scale_poses
+    from freegaussian_tpu_torch.data.ply import write_ply_points
+    from freegaussian_tpu_torch.ops.math import bilinear_interp
+    from freegaussian_tpu_torch.preprocess.render_offline import render_depth_maps
+    from freegaussian_tpu_torch.viewer.server import orbit_camera
+
+    t0 = time.perf_counter()
+    width, height = SERVE_WH
+    root = tmp / "real_capture"
+    for sub in ("images", "fg", "masks", "opticalflow"):
+        (root / sub).mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 81)
+    n = CAPTURE_FRAMES
+    frames = []
+    px = width / 640.0  # intrinsics in 640-wide pixels
+    for i in range(n):
+        cam = orbit_camera(-0.6 + 1.2 * i / (n - 1), 0.15, 6.0, width=width, height=height, device=DEVICE)
+        c2w = np.eye(4)
+        c2w[:3] = cam.c2w.cpu().numpy()
+        stem = f"frame_{i:04d}"
+        frames.append({
+            "file_path": f"images/{stem}.jpg", "mask_path": f"fg/{stem}.png", "transform_matrix": c2w.tolist(),
+            "fl_x": px * (500.0 + 2.0 * i), "fl_y": px * (501.0 + 2.0 * i), "cx": width / 2 + px * 2.5 * (i - 3.5),
+            "cy": height / 2 - px * 1.5 * (i - 3.5), **CAPTURE_DISTORTION,
+        })
+    meta = {"frames": frames}
+    (root / "transforms.json").write_text(json.dumps(meta))
+    # parse_real's own pose arithmetic on the same (float32) poses
+    poses = np.stack([np.array(f["transform_matrix"], np.float32) for f in json.loads((root / "transforms.json").read_text())["frames"]])
+    poses, transform = auto_orient_and_center_poses(poses)
+    scale = auto_scale_poses(poses)
+    poses[:, :3, 3] *= scale
+    moved = copy.deepcopy(model)
+    with torch.no_grad():
+        T = torch.as_tensor(transform, device=DEVICE)
+        moved.gauss_params["means"].copy_((moved.gauss_params["means"] @ T[:, :3].T + T[:, 3]) * scale)
+        moved.gauss_params["scales"].add_(float(np.log(scale)))
+    k = CAPTURE_DISTORTION
+    dist = [k["k1"], k["k2"], k["p1"], k["p2"], k["k3"], k["k4"], 0.0, 0.0]
+    ys, xs = torch.meshgrid(torch.arange(height, device=DEVICE), torch.arange(width, device=DEVICE), indexing="ij")
+    grid = torch.stack([xs, ys], dim=-1).reshape(-1, 2).double()
+    pinholes = []
+    for i, f in enumerate(frames):
+        stem = Path(f["file_path"]).stem
+        cam = _capture_camera(poses[i, :3], f["fl_x"], f["fl_y"], f["cx"], f["cy"], i / (n - 1), width, height)
+        pinholes.append(cam)
+        rgb = moved(cam)["rgb"]
+        K_cv = np.array([[f["fl_x"], 0, f["cx"] - 0.5], [0, f["fl_y"], f["cy"] - 0.5], [0, 0, 1]], np.float64)
+        src = ud.undistort_points(grid, K_cv, dist, K_cv).float()  # the pinhole pixel of each distorted pixel
+        img = bilinear_interp(rgb[None], src[None, :, 0], src[None, :, 1])[0].reshape(height, width, 3)
+        Image.fromarray((img.clamp(0, 1) * 255).round().to(torch.uint8).cpu().numpy()).save(
+            root / f["file_path"], "JPEG", quality=CAPTURE_JPEG_QUALITY)
+        fg = np.full((height, width), 255, np.uint8)
+        fg[:, : 8 + i] = 0
+        Image.fromarray(fg).save(root / f["mask_path"])
+        mask = np.zeros((height, width, 3), bool)
+        for c in (1, 2):
+            y, x = rng.integers(0, height // 2), rng.integers(0, width // 2)
+            mask[y : y + height // 3, x : x + width // 3, c] = True
+        mask[..., 0] = ~mask[..., 1:].any(-1)
+        np.save(root / "masks" / f"{i:04d}.npy", mask)
+        if i != 5:
+            np.save(root / "opticalflow" / f"{stem}.npy", rng.normal(size=(height, width, 2)).astype(np.float32))
+    render_depth_maps(moved.cfg, moved.params, moved.alive, pinholes, root / "depth", dataparser_scale=scale,
+                      deform=moved.deform, names=[Path(f["file_path"]).stem for f in frames])
+    means = model.params["means"][model.alive][::CAPTURE_SEED_STRIDE].cpu().numpy()
+    write_ply_points(root / "sparse_pc.ply", means, rng.integers(0, 256, size=(len(means), 3)).astype(np.uint8))
+    mib = sum(f.stat().st_size for f in root.rglob("*") if f.is_file()) / 2**20
+    print(f"captures real: {n} frames at {width}x{height}, JPEG q{CAPTURE_JPEG_QUALITY}, distortion {CAPTURE_DISTORTION}, "
+          f"per-frame intrinsics, {len(means)} seed points, parse transform scale {scale:.4f}; {mib:.1f} MiB, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"root": root, "transform": transform, "scale": scale, "dist": dist, "frames": frames, "model": moved}
+
+
+def check_undistortion(capture: dict, card: str) -> dict:
+    """`undistort_frame` of frame 3 (image, foreground mask, M + 1 = 3
+    articulation masks, depth, flow) on the card against the port's CPU run:
+    the camera and the ROI equal, and every array bit-equal (the undistortion
+    is float64 elementwise arithmetic in a fixed order on both devices, and
+    the bilinear remap integer arithmetic); ms a frame on the card."""
+    import torch
+
+    from freegaussian_tpu_torch.data.datamanager import undistort_frame
+    from freegaussian_tpu_torch.data.images import read_image
+
+    root, f = capture["root"], capture["frames"][3]
+    stem = Path(f["file_path"]).stem
+    K = np.array([[f["fl_x"], 0, f["cx"]], [0, f["fl_y"], f["cy"]], [0, 0, 1]], np.float32)
+    d = CAPTURE_DISTORTION
+    dist = np.array([d["k1"], d["k2"], d["k3"], d["k4"], d["p1"], d["p2"]], np.float32)
+    args = dict(mask=read_image(root / f["mask_path"]) > 127, depth=np.load(root / "depth" / f"{stem}.npy")[..., None],
+                flow=np.load(root / "opticalflow" / f"{stem}.npy"), atrb_mask=np.load(root / "masks" / "0003.npy"))
+    image = read_image(root / f["file_path"])
+    t0 = time.perf_counter()
+    cpu = undistort_frame(K, dist, image, device="cpu", **args)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_out = undistort_frame(K, dist, image, device=DEVICE, **args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    names = ("K", "image", "mask", "depth", "flow", "atrb_mask")
+    differ = {n: int((a != b).sum()) if a.shape == b.shape else -1 for n, a, b in zip(names, card_out, cpu)}
+    flow_max = float(np.abs(card_out[4] - cpu[4]).max()) if card_out[4].shape == cpu[4].shape else float("inf")
+    ms = statistics.median(times)
+    print(f"captures undistort: frame 3, {image.shape[1]}x{image.shape[0]} -> {card_out[1].shape[1]}x{card_out[1].shape[0]}, "
+          f"K' {card_out[0].tolist()}; card vs CPU elements that differ {json.dumps(differ)} (budget 0 each), flow max "
+          f"|diff| {flow_max:.3g} px; {ms:.2f} ms a frame on the card (median of 5, synced host clock, the host copies "
+          f"in), {cpu_ms:.0f} ms on the CPU ({card})")
+    if any(differ.values()):
+        raise AssertionError(f"captures undistort: card and CPU differ: {differ}")
+    return {"ms": ms, "cpu_ms": cpu_ms, "shape": card_out[1].shape[:2]}
+
+
+def check_interflow(capture: dict, card: str) -> dict:
+    """The `interflow` verb in process on the card, both forms, from the
+    capture's depth renders and optical flow, against
+    `generate_interflow_dataset` on the CPU over the same files: the
+    largest difference in px and relative to the largest flow (budget
+    INTERFLOW_RTOL). The velocity form's maps stay in flow_n2/ for the train
+    verb."""
+    import shutil
+
+    import torch
+
+    from freegaussian_tpu_torch import cli
+    from freegaussian_tpu_torch.preprocess.epipolar_flow import generate_interflow_dataset
+
+    root = capture["root"]
+    result = {}
+    for form in ("backproject", "velocity"):
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        n = cli.main(["interflow", "--data", str(root), "--dataparser", "real", "--interval", "2", "--form", form,
+                      "--device", DEVICE])
+        wall = time.perf_counter() - t0
+        if any(launches().values()):
+            raise AssertionError(f"captures interflow launched kernels: {launches()}")
+        generate_interflow_dataset(root, interval=2, form=form, dataparser="real", out_dir=f"flow_cpu_{form}",
+                                   device="cpu")
+        worst, largest = 0.0, 0.0
+        for path in sorted((root / "flow_n2").glob("*.npy")):
+            got, want = np.load(path), np.load(root / f"flow_cpu_{form}" / path.name)
+            if got.shape != want.shape or not np.isfinite(got).all():
+                raise AssertionError(f"captures interflow {form} {path.name}: {got.shape} vs {want.shape}")
+            worst = max(worst, float(np.abs(got - want).max()))
+            largest = max(largest, float(np.abs(want).max()))
+        ms = wall / n * 1e3
+        print(f"captures interflow {form}: {n} maps; card vs CPU max |diff| {worst:.3g} px, {worst / max(largest, 1e-30):.2e} of the "
+              f"largest |flow| {largest:.1f} px (budget {INTERFLOW_RTOL:g}); {ms:.1f} ms a frame with the npy reads "
+              f"and writes ({card})")
+        if n != CAPTURE_FRAMES or worst > INTERFLOW_RTOL * largest or not largest > 0:
+            raise AssertionError(f"captures interflow {form}: {n} maps, max |diff| {worst} of {largest}")
+        result[form] = {"ms": ms, "max_diff": worst, "largest": largest}
+        if form == "backproject":
+            shutil.move(str(root / "flow_n2"), str(root / "flow_card_backproject"))
+    return result
+
+
+def _capture_overlay(path: Path, out: Path, steps: int, eval_at: int) -> Path:
+    path.write_text(
+        f"max_num_iterations: {steps}\nsteps_per_log: 1\nsteps_per_save: 0\nsteps_per_eval_image: 0\n"
+        f"steps_per_eval_all_images: {eval_at}\noutput_dir: {out}\n"
+        "pipeline:\n  model:\n    warm_up: 0\n    num_downscales: 0\n"
+    )
+    return path
+
+
+def check_capture_kernels(label: str, model, camera, shapes) -> dict:
+    """Rows 1, 2, 8 and 9 against their plain versions at a capture's own
+    frame: `model` (the bench scene in the capture's frame) seen from
+    `camera`, a frame the verbs ran on (its size not a multiple of the
+    tile, its principal point off centre), at each (C, tile) that the
+    verbs' compositor forwards and backwards took at that size (`shapes`,
+    from `_run_verb`), with phase 4's budgets; then the deform field on that
+    frame's means and time."""
+    width, height = camera.width, camera.height
+    inputs, field_args = pixel_stage_inputs(model, camera)
+    seen = {(walk, C, tile) for walk, C, w, h, tile in shapes if (w, h) == (width, height)}
+    fwd = sorted((tile, C) for walk, C, tile in seen if walk == "fwd")
+    bwd = sorted((tile, C) for walk, C, tile in seen if walk == "bwd")
+    if not (fwd and bwd):
+        raise AssertionError(f"captures kernels {label}: no compositor forward and backward at {width}x{height}: {shapes}")
+    rows, bwd_rows = [], []
+    for tile in sorted({t for t, _ in fwd}):
+        rows += _check_forward(inputs, width, height, (tile,), [C for t, C in fwd if t == tile], label, timed=False)[0]
+    for tile in sorted({t for t, _ in bwd}):
+        bwd_rows += _check_backward(*inputs, width, height, None, frame=label, tiles=(tile,),
+                                    channels=[C for t, C in bwd if t == tile])
+    deform = _check_deform(*field_args, timed=False)
+    out = {
+        "frame": f"{width}x{height}", "cx": float(camera.cx), "cy": float(camera.cy), "fwd": fwd, "bwd": bwd,
+        "fwd_max_abs_err": max(r["max_abs_err"] for r in rows),
+        "bwd_max_outside_share": max(r["outside_share"] for r in bwd_rows),
+        "deform_fwd_max_abs_err": deform["fwd"]["max_abs_err"], "deform_bwd_max_abs_err": deform["bwd"]["max_abs_err"],
+    }
+    print(f"captures kernels {label}: " + json.dumps(out))
+    return out
+
+
+def train_real_capture(capture: dict, model, bare_step_ms: float, card: str) -> dict:
+    """The `train` verb on the real capture (configs/real/base.yaml and an
+    overlay: warm-up 0, CAPTURE_STEPS steps, one eval at CAPTURE_EVAL_AT),
+    from its seed points: setup s and the undistortion's share of it, step
+    ms after the first epoch against phase 7's bare step, eval PSNR, and
+    rows 1, 2, 8 and 9 launched; then `eval` of the bench scene moved into
+    the capture's frame, whose PSNR against the undistorted frames says
+    whether parse, undistortion and cameras agree; then rows 1, 2, 8 and 9
+    against their plain versions at the trained frame's shape
+    (`check_capture_kernels`). The undistortion runs on the datamanager's
+    two loader threads: each call's synced span, and their union."""
+    import threading
+
+    import torch
+
+    from freegaussian_tpu_torch.data import datamanager
+
+    root = capture["root"]
+    out = root.parent / "real_out"
+    over = _capture_overlay(root.parent / "real_over.yaml", out, CAPTURE_STEPS, CAPTURE_EVAL_AT)
+    flags = ["--data", root, "--config", HERE / "configs/real/base.yaml", "--scene-config", over,
+             "--capacity", VERB_CAPACITY, "--device", DEVICE]
+    real_undistort, spans = datamanager.undistort_frame, []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = real_undistort(*args, **kwargs)
+        torch.cuda.synchronize()
+        spans.append((t0, time.perf_counter(), threading.get_ident()))
+        return result
+
+    datamanager.undistort_frame = timed
+    try:
+        run = _run_verb(["train", *flags])
+    finally:
+        datamanager.undistort_frame = real_undistort
+    trainer, counts = run["trainer"], run["launches"]
+    camera, shapes = trainer.datamanager.frames[0].camera, set(run["shapes"])
+    spent = [b - a for a, b, _ in spans]
+    union, reach = 0.0, 0.0
+    for a, b, _ in sorted(spans):
+        union += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    train_rows, eval_rows = _verb_metrics(out)
+    losses = [r["loss"] for r in train_rows]
+    step_ms = [1e3 / r["steps_per_sec"] for r in train_rows]
+    n_frames = len(trainer.datamanager)
+    steady = statistics.median(step_ms[n_frames:])
+    frame = trainer.datamanager.frames[0]
+    psnr = [r["psnr"] for r in eval_rows]
+    print(f"captures train: {CAPTURE_STEPS} steps on the real capture ({n_frames} frames undistorted to "
+          f"{frame.camera.width}x{frame.camera.height}, cx {float(frame.camera.cx):.3f} cy {float(frame.camera.cy):.3f}), "
+          f"{int(train_rows[0]['gaussian_count'])} Gaussians from its seed points; setup {run['setup_s']:.2f} s, of which "
+          f"undistortion {union:.3f} s of wall time over {len(spent)} frames (both splits) on "
+          f"{len({t for _, _, t in spans})} loader threads: per call {json.dumps([round(v * 1e3, 2) for v in spent])} ms, "
+          f"their sum {sum(spent):.3f} s; step ms after the first epoch "
+          f"{steady:.2f} against phase 7's bare step {bare_step_ms:.2f} ({steady / bare_step_ms:.2f}x); loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}; eval psnr {psnr}; launches {json.dumps(counts)} ({card})")
+    if len(losses) != CAPTURE_STEPS or not all(np.isfinite(v) for v in losses) or len(eval_rows) != 1:
+        raise AssertionError(f"captures train: losses {losses}, eval rows {eval_rows}")
+    for name in ("rasterize_fwd", "rasterize_bwd", "deform_fwd", "deform_bwd"):
+        if not counts[name] > 0:
+            raise AssertionError(f"captures train launched {name} {counts[name]} times")
+    ckpt = bench_scene_checkpoint(trainer, model, root.parent / "real_bench_checkpoints", transform=capture["transform"],
+                                  scale=capture["scale"])
+    setup_s = run["setup_s"]
+    del trainer, run
+    report_path = root.parent / "real_eval.json"
+    ev = _run_verb(["eval", *flags, "--load", ckpt, "--report", report_path])
+    shapes |= ev["shapes"]
+    report = json.loads(report_path.read_text())
+    print(f"captures eval: the bench scene in the capture's frame against its {len(ev['trainer'].datamanager)} "
+          f"undistorted frames: psnr {report['psnr']:.3f}, ssim {report['ssim']:.4f} (at least {CAPTURE_MIN_PSNR}); "
+          f"setup {ev['setup_s']:.2f} s, launches {json.dumps(ev['launches'])} ({card})")
+    if not report["psnr"] >= CAPTURE_MIN_PSNR:
+        raise AssertionError(f"captures eval: psnr {report['psnr']}")
+    total = {k: counts[k] + ev["launches"][k] for k in counts}
+    del ev
+    kernels = check_capture_kernels("real", capture["model"], camera, shapes)
+    return {"launches": total, "setup_s": setup_s, "undistort_s": union, "undistort_call_ms": spent, "step_ms": steady,
+            "eval_psnr": report["psnr"], "kernels": kernels}
+
+
+def write_conerf_capture(tmp: Path, model) -> Path:
+    """A CoNeRF capture at NATIVE_WH read at rgb/2x: dataset.json (7 train
+    ids, 1 val), camera/{fid}.json (OpenCV orientation, position, focal and
+    principal point at full size), scene.json (scale 1, centre 0, a bbox),
+    points.ply (every CAPTURE_SEED_STRIDE-th bench mean), PNG frames of the
+    bench scene at 648x484, polygon annotations for M = 2 on
+    CONERF_KEY_FRAMES (seeded star polygons, full-size coordinates) and
+    values.yaml."""
+    import yaml
+
+    from freegaussian_tpu_torch.data.ply import write_ply_points
+    from freegaussian_tpu_torch.viewer.png import encode_png
+    from freegaussian_tpu_torch.viewer.server import orbit_camera, to_rgb8
+
+    t0 = time.perf_counter()
+    root = tmp / "conerf_capture"
+    width, height = NATIVE_WH[0] // 2, NATIVE_WH[1] // 2
+    for sub in ("camera", "rgb/2x", "annotations"):
+        (root / sub).mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 91)
+    n = CAPTURE_FRAMES
+    ids = [f"{i:06d}" for i in range(n)]
+    (root / "dataset.json").write_text(json.dumps({"ids": ids, "train_ids": ids[:-1], "val_ids": ids[-1:]}))
+    (root / "scene.json").write_text(json.dumps({"scale": 1.0, "center": [0.0, 0.0, 0.0],
+                                                 "bbox": [[-3.0, -3.0, -3.0], [3.0, 3.0, 3.0]]}))
+    for i, fid in enumerate(ids):
+        fx = 500.0 * width / 640.0
+        cx, cy = width / 2 + 1.5, height / 2 - 1.0
+        cam = orbit_camera(-0.6 + 1.2 * i / (n - 1), 0.15, 6.0, width=width, height=height, fx=fx, time=i / (n - 1),
+                           device=DEVICE)
+        cam = _capture_camera(cam.c2w.cpu().numpy(), fx, fx, cx, cy, i / (n - 1), width, height)
+        (root / "rgb/2x" / f"{fid}.png").write_bytes(encode_png(to_rgb8(model(cam)["rgb"])))
+        R = cam.c2w.cpu().numpy()[:, :3].copy()
+        R[:, 1:3] *= -1  # OpenGL -> OpenCV axes
+        (root / "camera" / f"{fid}.json").write_text(json.dumps({
+            "orientation": R.T.tolist(), "position": cam.c2w.cpu().numpy()[:, 3].tolist(),
+            "focal_length": 2 * fx, "principal_point": [2 * cx, 2 * cy],
+        }))
+    values = []
+    for i in CONERF_KEY_FRAMES:
+        polygons = []
+        for a in range(2):
+            c = rng.uniform([0.25 * NATIVE_WH[0], 0.25 * NATIVE_WH[1]], [0.75 * NATIVE_WH[0], 0.75 * NATIVE_WH[1]])
+            ang = np.sort(rng.uniform(0, 2 * np.pi, 9))
+            r = rng.uniform(60, 260, 9) * NATIVE_WH[0] / 1296
+            polygons.append({"attribute": a, "points": np.stack([c[0] + r * np.cos(ang), c[1] + r * np.sin(ang)], -1).round(1).tolist()})
+            values.append({"frame": i, "class": a, "value": float(rng.uniform(-1, 1))})
+        (root / "annotations" / f"{ids[i]}.json").write_text(json.dumps({"polygons": polygons}))
+    (root / "values.yaml").write_text(yaml.safe_dump(values))
+    means = model.params["means"][model.alive][::CAPTURE_SEED_STRIDE].cpu().numpy()
+    write_ply_points(root / "points.ply", means, rng.integers(0, 256, size=(len(means), 3)).astype(np.uint8))
+    print(f"captures conerf: {n} frames at {NATIVE_WH[0]}x{NATIVE_WH[1]} read at rgb/2x ({width}x{height}), polygon "
+          f"annotations for M = 2 on frames {CONERF_KEY_FRAMES}, written in {time.perf_counter() - t0:.1f} s")
+    return root
+
+
+def train_conerf_capture(root: Path, model, card: str) -> dict:
+    """The `train` verb on the CoNeRF capture (configs/conerf/base.yaml,
+    warm-up 0, CONERF_STEPS steps) from its points.ply, rows 1, 2, 8 and 9
+    launched; then `cluster` over its polygon masks with the bench scene
+    (already in the capture's frame: scale 1, centre 0) as the checkpoint,
+    the vote held against the plain compositor's on the same inputs; then
+    rows 1, 2, 8 and 9 against their plain versions at the 648x484 frame
+    (`check_capture_kernels`)."""
+    from freegaussian_tpu_torch import cli
+    from freegaussian_tpu_torch.ops import rasterize_cuda
+    from freegaussian_tpu_torch.preprocess.clustering import cluster_gaussians
+
+    out = root.parent / "conerf_out"
+    over = _capture_overlay(root.parent / "conerf_over.yaml", out, CONERF_STEPS, 0)
+    flags = ["--data", root, "--config", HERE / "configs/conerf/base.yaml", "--scene-config", over,
+             "--capacity", VERB_CAPACITY, "--device", DEVICE]
+    run = _run_verb(["train", *flags])
+    trainer, counts, shapes = run["trainer"], run["launches"], set(run["shapes"])
+    rows, _ = _verb_metrics(out)
+    losses = [r["loss"] for r in rows]
+    step_ms = [1e3 / r["steps_per_sec"] for r in rows]
+    cam = trainer.datamanager.frames[0].camera
+    print(f"captures conerf train: {CONERF_STEPS} steps at {cam.width}x{cam.height} ({len(trainer.datamanager)} train "
+          f"frames, {int(rows[0]['gaussian_count'])} Gaussians from points.ply); setup {run['setup_s']:.2f} s; step ms "
+          f"median {statistics.median(step_ms[1:]):.2f}; loss {losses[0]:.5f} -> {losses[-1]:.5f}; launches "
+          f"{json.dumps(counts)} ({card})")
+    if (cam.width, cam.height) != (NATIVE_WH[0] // 2, NATIVE_WH[1] // 2) or len(losses) != CONERF_STEPS \
+            or not all(np.isfinite(v) for v in losses):
+        raise AssertionError(f"captures conerf train: {cam.width}x{cam.height}, losses {losses}")
+    for name in ("rasterize_fwd", "rasterize_bwd", "deform_fwd", "deform_bwd"):
+        if not counts[name] > 0:
+            raise AssertionError(f"captures conerf train launched {name} {counts[name]} times")
+    ckpt = bench_scene_checkpoint(trainer, model, root.parent / "conerf_bench_checkpoints", transform=np.eye(4, dtype=np.float32)[:3])
+    del trainer, run
+    cl = _run_verb(["cluster", *flags, "--load", ckpt])
+    shapes |= cl["shapes"]
+    ctrainer = cl["trainer"]
+    st = ctrainer.state
+    got = np.load(root / f"gaussian_mask_{int(st.alive.sum())}x2.npy")
+    masks, cameras, valids = cli.cluster_inputs(ctrainer)
+    real_tiles = rasterize_cuda.rasterize_tiles
+    rasterize_cuda.rasterize_tiles = rasterize_cuda.rasterize_tiles_plain
+    try:
+        plain = cluster_gaussians(st.params, st.alive, masks, cameras, mask_valids=valids or None)[st.alive].cpu().numpy()
+    finally:
+        rasterize_cuda.rasterize_tiles = real_tiles
+    differ = int((got != plain).any(-1).sum())
+    channels = {c: cl["channels"].count(c) for c in sorted(set(cl["channels"]))}
+    print(f"captures conerf cluster: over {len(masks)} frames' polygon masks, mask {got.shape}, rows voted "
+          f"{int(got.any(-1).sum())} ({got.any(-1).mean():.2%}), votes per attribute {got.sum(0).tolist()}; against the "
+          f"plain compositor's vote {differ} rows differ; setup {cl['setup_s']:.2f} s, work {cl['work_s']:.2f} s; "
+          f"launches {json.dumps(cl['launches'])}, compositor channels {json.dumps(channels)} ({card})")
+    if differ > CLUSTER_MAX_DIFF * got.shape[0] or not got.any() or channels != {1: len(masks)}:
+        raise AssertionError(f"captures conerf cluster: {differ} rows differ, channels {channels}")
+    total = {k: counts[k] + cl["launches"][k] for k in counts}
+    del ctrainer, st, cl
+    kernels = check_capture_kernels("conerf", model, cam, shapes)
+    return {"launches": total, "differ": differ, "voted": int(got.any(-1).sum()), "step_ms": statistics.median(step_ms[1:]),
+            "kernels": kernels}
+
+
+def phase_captures(tmp: Path, model, bare_step_ms: float, card: str) -> dict:
+    """Phase 20 (the module docstring): the real-capture front end on the card."""
+    real = write_real_capture(tmp, model)
+    undistort = check_undistortion(real, card)
+    interflow = check_interflow(real, card)
+    train = train_real_capture(real, model, bare_step_ms, card)
+    conerf = train_conerf_capture(write_conerf_capture(tmp, model), model, card)
+    total = {k: train["launches"][k] + conerf["launches"][k] for k in train["launches"]}
+    print(f"captures launches: {json.dumps(total)}")
+    return {"launches": total, "undistort": undistort, "interflow": interflow, "train": train, "conerf": conerf}
+
+
 def trunk_bound(n: int, in_ch: int, save: bool, backward: bool):
     """Least time (ms) the card could take for one call of the trunk on a
     precomputed embedding, and what sets it: `field_bound`'s operations
@@ -2223,6 +2778,7 @@ def main():
         phase_viewer_verb(data, verb, control_verb)
         pipeline = phase_pipeline(Path(tmp), data, verb, model, card)
         del verb["trainer"], control_verb["trainer"]
+        captures = phase_captures(Path(tmp), model, train["median_step_ms"], card)
     print(
         f"train verb median step {verb['median_step_ms']:.2f} ms against phase 7's bare step "
         f"{train['median_step_ms']:.2f} ms in this run ({verb['median_step_ms'] / train['median_step_ms']:.2f}x); "
@@ -2263,8 +2819,8 @@ def main():
         records.append(record(name, "deform_field.cu", f"freegaussian_tpu/ops/mlp_pallas.py:{line}",
                               trunk["launches"][name], trunk[mode]["max_abs_err"], trunk[mode]))
     assert [r["name"] for r in records] == list(launches())
-    for r in records:  # phase 19's verbs: rows 1, 6 and 8, and the 5 control steps' backwards
-        r["launches"] += pipeline["launches"][r["name"]]
+    for r in records:  # phase 19's verbs (rows 1, 6 and 8, the 5 control steps' backwards); phase 20's (rows 1, 2, 8, 9)
+        r["launches"] += pipeline["launches"][r["name"]] + captures["launches"][r["name"]]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(

@@ -1,8 +1,11 @@
-"""Command-line entry of the port: the `train`, `train-control`, `cluster`,
-`eval`, `render`, `export` and `viewer` verbs, the whole two-stage pipeline.
+"""Command-line entry of the port: the `interflow`, `train`, `train-control`,
+`cluster`, `eval`, `render`, `export` and `viewer` verbs, the whole two-stage
+pipeline from a capture on disk.
 
+    python -m freegaussian_tpu_torch.cli interflow --data <dir> [--interval 2] \
+        [--form velocity|backproject] [--dataparser synthetic|real] [--flow-dir opticalflow] [--device cuda|cpu]
     python -m freegaussian_tpu_torch.cli train --data <dir> --config configs/sim/base.yaml \
-        [--scene-config scene.yaml] [--dataparser synthetic|dnerf] [--load <checkpoint dir>] \
+        [--scene-config scene.yaml] [--dataparser synthetic|dnerf|real|conerf] [--load <checkpoint dir>] \
         [--max-iterations N] [--capacity N] [--deform-impl fused|pallas|headsfused] [--device cuda|cpu]
     python -m freegaussian_tpu_torch.cli cluster --data <dir> --config configs/sim/base.yaml \
         --load <checkpoint dir> [--key-frames key_frames.yaml --scene <name>] [--dynamic] [--exclusive] \
@@ -32,6 +35,11 @@ load the port's checkpoint directory `--load` (its latest step).
 the field-trunk kernels). `--device` defaults to cuda and exits non-zero
 without a GPU; `--device cpu` runs the kernels' plain versions.
 
+- `interflow` turns precomputed optical flow (`opticalflow/{stem}.npy`, or
+  `--flow-dir`; zero flow where a frame has none) and the frames' depth
+  renders (`depth/{stem}.npy`, from `render`) into the camera-motion-
+  compensated flow the flow losses train on: `interflow_n{k}/` for the
+  synthetic layout, `flow_n{k}/` for real captures.
 - `train` / `train-control` write `<output_dir>/<experiment_name>/metrics.jsonl`
   and step checkpoints; the last line of their standard output is the last
   logged metrics as JSON.
@@ -85,6 +93,16 @@ def build_parser() -> argparse.ArgumentParser:
         data_flags(sp, "resume from this checkpoint directory (its latest step)")
         sp.add_argument("--max-iterations", type=int, default=0)
         sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+
+    sp = sub.add_parser("interflow", help="generate epipolar interflow npys")
+    sp.add_argument("--data", required=True)
+    sp.add_argument("--interval", type=int, default=2)
+    sp.add_argument("--form", choices=["velocity", "backproject"], default="velocity")
+    sp.add_argument("--dataparser", choices=["synthetic", "real"], default="synthetic")
+    sp.add_argument("--flow-dir", default=None,
+                    help="directory of precomputed optical-flow .npy maps (H, W, 2), one per frame stem: the hand-off "
+                         "from an external flow network (default opticalflow/; a missing map is zero flow)")
+    sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
 
     sp = sub.add_parser("train", help="stage-1 training")
     train_flags(sp)
@@ -222,15 +240,19 @@ def trainer_config(args):
     return cfg
 
 
-def _build_trainer(args, control: bool):
-    """The `Trainer` (or, with `control`, the `ControlTrainer` over
-    `--stage1-checkpoint`) of a verb's flags, with `--load` loaded."""
+def _resolve_device(args):
     from .device import resolve_device
 
     try:
-        device = resolve_device(args.device)
+        return resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"freegaussian-tpu-torch {args.cmd}: {e}") from None
+
+
+def _build_trainer(args, control: bool):
+    """The `Trainer` (or, with `control`, the `ControlTrainer` over
+    `--stage1-checkpoint`) of a verb's flags, with `--load` loaded."""
+    device = _resolve_device(args)
     cfg = trainer_config(args)
     if not control:
         from .engine.trainer import Trainer
@@ -276,6 +298,15 @@ def cluster_inputs(trainer, key_frames: str = "", scene: str = ""):
         if parsed_valids is not None:
             valids[i] = parsed_valids[i]
     return masks, cameras, valids
+
+
+def _interflow(args):
+    from .preprocess.epipolar_flow import generate_interflow_dataset
+
+    n = generate_interflow_dataset(Path(args.data), interval=args.interval, form=args.form,
+                                   dataparser=args.dataparser, flow_dir=args.flow_dir, device=_resolve_device(args))
+    print(f"wrote {n} interflow maps")
+    return n
 
 
 def _cluster(args):
@@ -347,9 +378,12 @@ _DATASET_VERBS = {"cluster": _cluster, "eval": _eval, "render": _render, "export
 
 
 def main(argv=None):
-    """Run a verb; every verb but `viewer` returns its trainer (for callers
-    in process, such as chip_smoke.py)."""
+    """Run a verb; every verb but `viewer` and `interflow` (the count of maps
+    it wrote) returns its trainer (for callers in process, such as
+    chip_smoke.py)."""
     args = build_parser().parse_args(argv)
+    if args.cmd == "interflow":
+        return _interflow(args)
     if args.cmd in ("train", "train-control"):
         trainer, metrics = _train(args)
         print(json.dumps(metrics))

@@ -11,7 +11,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.math import get_viewmat
+from ..ops.math import get_viewmat, opengl_to_opencv_c2w, to_4x4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,12 +41,7 @@ class Camera:
     @property
     def viewmat(self) -> torch.Tensor:
         """OpenCV world-to-camera (4, 4)."""
-        c2w = self.c2w
-        if c2w.shape[-2] == 3:
-            bottom = torch.zeros_like(c2w[..., :1, :])
-            bottom[..., 0, 3] = 1.0
-            c2w = torch.cat([c2w, bottom], dim=-2)
-        return get_viewmat(c2w[None])[0]
+        return get_viewmat(to_4x4(self.c2w)[None])[0]
 
     def downscaled(self, d: int) -> "Camera":
         """Camera for a 1/d resolution render."""
@@ -65,8 +60,7 @@ class Camera:
     @property
     def c2w_opencv(self) -> torch.Tensor:
         """(3, 4) camera-to-world in the OpenCV convention (y and z columns flipped)."""
-        flip = torch.tensor([1.0, -1.0, -1.0], dtype=self.c2w.dtype, device=self.c2w.device)
-        return torch.cat([self.c2w[..., :3, :3] * flip, self.c2w[..., :3, 3:4]], dim=-1)
+        return opengl_to_opencv_c2w(self.c2w[..., :3, :], keep_original_world_coordinate=True)
 
     @property
     def position(self) -> torch.Tensor:

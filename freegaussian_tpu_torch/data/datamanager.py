@@ -11,9 +11,11 @@ Behaviour of the reference's FreeGaussianImageDatamanager
     same sequence as the JAX package's, so both train on the same frames in
     the same order;
   - batches stay on the device after first use;
-  - a fixed-order eval loader.
-Undistortion is not ported yet (it needs cv2's remaps; ROADMAP.md): a frame
-with non-zero distortion raises.
+  - a fixed-order eval loader;
+  - a frame with a Brown distortion is undistorted with its foreground
+    mask, paired-frame depth, flow and articulation masks, and cropped to
+    the valid rectangle (`undistort_frame`, on the datamanager's device;
+    OpenCV's arithmetic, `data/undistort.py`).
 """
 
 from __future__ import annotations
@@ -26,9 +28,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..viewer.png import read_png
+from ..device import resolve_device
+from . import undistort as ud
 from .cameras import Camera
 from .dataparsers import ParsedDataset
+from .images import read_image
 
 
 def nearest_resize(a: np.ndarray, height: int, width: int) -> np.ndarray:
@@ -53,6 +57,89 @@ def load_flow_npy(filepath: Path, height: int, width: int, scale_factor: float =
     return flow.astype(np.float32)
 
 
+def undistort_frame(
+    K: np.ndarray,
+    distortion: np.ndarray,
+    image: np.ndarray,
+    mask: Optional[np.ndarray] = None,
+    depth: Optional[np.ndarray] = None,
+    flow: Optional[np.ndarray] = None,
+    atrb_mask: Optional[np.ndarray] = None,
+    device="cuda",
+):
+    """Joint undistortion of a frame's image, foreground mask, depth, flow
+    and (H, W, M+1) articulation masks, cropped to the valid rectangle, so
+    every per-pixel array stays aligned with its image (twin of
+    `freegaussian_tpu/data/datamanager.py:undistort_frame`, which calls
+    OpenCV; ref: freegaussian_datamanager.py:239-323). `distortion` is
+    (k1, k2, k3, k4, p1, p2) with k4 = 0. Runs on `device` (CUDA unless
+    the caller passes the CPU) in float64;
+    returns (K' (3, 3) float32, image, mask, depth, flow, atrb_mask) as
+    numpy, the same values as the JAX package's:
+      - the camera: getOptimalNewCameraMatrix(alpha=0) on K with its
+        principal point shifted by -0.5, the ROI's corner subtracted, +0.5;
+      - the image: cv2.undistort (bilinear, 0 outside);
+      - the masks: undistorted as 0/255 images and thresholded at 127;
+      - the depth: a nearest remap through initUndistortRectifyMap;
+      - the flow: its start and end points through undistortPoints, re-diffed;
+    As in the JAX package, the depth, masks and flow use the camera after
+    the ROI's corner was subtracted (the image the one before it)."""
+    K = np.array(K, np.float64)
+    d = np.asarray(distortion, np.float64)
+    if d[3] != 0:
+        raise ValueError("the 4th Brown parameter k4 is unsupported (k1, k2, k3, p1, p2 only)")
+    dist = [d[0], d[1], d[4], d[5], d[2], d[3], 0.0, 0.0]  # OpenCV's order
+    K[0, 2] -= 0.5
+    K[1, 2] -= 0.5
+    distorted = any(dist)
+    dev = resolve_device(device)
+    height, width = image.shape[:2]
+    to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    if distorted:
+        new_k, (x, y, w, h) = ud.optimal_new_camera_matrix(K, dist, (width, height))
+        image_map = ud.fixed_point_map(K, dist, new_k, (width, height), dev)
+        image = ud.remap_bilinear_u8(to_dev(image), image_map).cpu().numpy()
+    else:
+        new_k, (x, y, w, h) = K, (0, 0, width, height)
+    image = image[y : y + h, x : x + w]
+    new_k = np.array(new_k)
+    new_k[0, 2] -= x
+    new_k[1, 2] -= y
+
+    # the foreground and articulation masks as channels of one 0/255 image
+    planes = ([np.squeeze(mask)] if mask is not None else []) + (
+        [atrb_mask[..., c] for c in range(atrb_mask.shape[-1])] if atrb_mask is not None else [])
+    if planes:
+        m8 = np.stack(planes, axis=-1).astype(np.uint8) * 255
+        if distorted:
+            mask_map = ud.fixed_point_map(K, dist, new_k, m8.shape[1::-1], dev)
+            m8 = ud.remap_bilinear_u8(to_dev(m8), mask_map).cpu().numpy()
+        planes = m8[y : y + h, x : x + w] > 127
+        if mask is not None:
+            mask, planes = planes[..., 0], planes[..., 1:]
+        if atrb_mask is not None:
+            atrb_mask = planes
+    if depth is not None:
+        if distorted:
+            # nearest, so no depth is invented across an edge (the JAX package's choice)
+            depth = np.squeeze(depth, -1) if depth.ndim == 3 and depth.shape[-1] == 1 else depth
+            u, v = ud.undistort_map(K, dist, new_k, (depth.shape[1], depth.shape[0]), dev)
+            depth = ud.remap_nearest(to_dev(depth.astype(np.float32)), u.float(), v.float()).cpu().numpy()
+        depth = depth[y : y + h, x : x + w]
+    if flow is not None:
+        if distorted:
+            fh, fw = flow.shape[:2]
+            yg, xg = torch.meshgrid(torch.arange(fh, device=dev), torch.arange(fw, device=dev), indexing="ij")
+            start = torch.stack([xg, yg], dim=-1).reshape(-1, 2).double()
+            end = start + to_dev(flow).reshape(-1, 2).double()
+            und = ud.undistort_points(torch.cat([start, end]), K, dist, new_k)  # both ends in one pass
+            flow = (und[start.shape[0]:] - und[: start.shape[0]]).reshape(fh, fw, 2).float().cpu().numpy()
+        flow = flow[y : y + h, x : x + w]
+    new_k[0, 2] += 0.5
+    new_k[1, 2] += 0.5
+    return new_k.astype(np.float32), image, mask, depth, flow, atrb_mask
+
+
 @dataclasses.dataclass
 class CachedFrame:
     image: np.ndarray  # (H, W, C) uint8
@@ -70,8 +157,6 @@ class FullImageDatamanager:
     batches of tensors on `device`."""
 
     def __init__(self, parsed: ParsedDataset, *, seed: int = 0, device="cuda"):
-        from ..device import resolve_device
-
         self.parsed = parsed
         self.device = resolve_device(device)
         self.rng = np.random.default_rng(seed)
@@ -82,9 +167,7 @@ class FullImageDatamanager:
 
     def _load_frame(self, i: int) -> CachedFrame:
         p = self.parsed
-        if p.distortion is not None and np.any(p.distortion[i]):
-            raise NotImplementedError("undistortion is not ported yet (ROADMAP.md): frame %d has distortion" % i)
-        image = read_png(p.image_filenames[i])
+        image = read_image(p.image_filenames[i])
         if image.ndim == 2:
             image = np.stack([image] * 3, axis=-1)
 
@@ -108,14 +191,23 @@ class FullImageDatamanager:
                 if mp.suffix == ".npy":
                     mask = np.load(mp)
                 else:
-                    m = read_png(mp)
+                    m = read_image(mp)
                     mask = (m[..., 0] if m.ndim == 3 else m) > 127
                 mask = np.squeeze(np.asarray(mask)).astype(bool)
+
+        atrb_mask = p.atrb_masks[i] if p.atrb_masks is not None else None
+        K = np.array([[p.fx[i], 0, p.cx[i]], [0, p.fy[i], p.cy[i]], [0, 0, 1]], np.float32)
+        if p.distortion is not None and np.any(p.distortion[i]):
+            K, image, mask, depth0, flow, atrb_mask = undistort_frame(
+                K, p.distortion[i], image, mask=mask, depth=depth0, flow=flow, atrb_mask=atrb_mask, device=self.device,
+            )
+            if depth0 is not None and depth0.ndim == 2:
+                depth0 = depth0[..., None]
 
         def make_cam(c2w, t):
             f = lambda v: torch.tensor(v, dtype=torch.float32, device=self.device)
             return Camera(
-                c2w=f(np.asarray(c2w, np.float32)), fx=f(p.fx[i]), fy=f(p.fy[i]), cx=f(p.cx[i]), cy=f(p.cy[i]),
+                c2w=f(np.asarray(c2w, np.float32)), fx=f(K[0, 0]), fy=f(K[1, 1]), cx=f(K[0, 2]), cy=f(K[1, 2]),
                 time=f(t), width=int(image.shape[1]), height=int(image.shape[0]),
             )
 
@@ -129,7 +221,7 @@ class FullImageDatamanager:
             flow=flow,
             depth0=depth0,
             mask=mask,
-            atrb_mask=p.atrb_masks[i] if p.atrb_masks is not None else None,
+            atrb_mask=atrb_mask,
             mask_valid=p.mask_valids[i] if p.mask_valids is not None else None,
         )
 

@@ -1,16 +1,20 @@
-"""Dataparsers (twin of `freegaussian_tpu/data/dataparsers.py`) for the
-families the port trains on so far:
+"""Dataparsers (twin of `freegaussian_tpu/data/dataparsers.py`) for the four
+dataset families the reference supports (freegaussian_dataparser.py):
 
   - D-NeRF / Blender       (`transforms_{split}.json` with per-frame `time`)
   - LiveScene synthetic    (blender-style `transforms.json` + depth/ +
                             interflow_n{k}/ + mask/, ref :1117-1288)
+  - LiveScene real capture (nerfstudio `transforms.json`, auto-orient/center +
+                            auto-scale, times from filename, flow_n{k}/,
+                            masks/{fid}.npy, Brown distortion, ref :681-1114)
+  - CoNeRF captures        (`dataset.json` + per-frame `camera/*.json` +
+                            `rgb/{d}x/` pyramid + annotations, ref :289-678)
 
 Host-side numpy code that runs once at startup and returns a ParsedDataset
-of struct-of-array cameras and file lists; the datamanager loads the files.
-Images are PNGs read by `viewer/png.py` (the GPU machine has no imageio).
-The real-capture and CoNeRF parsers need image undistortion and polygon
-fill, and are not ported yet (ROADMAP.md): `parse_real` and `parse_conerf`
-raise.
+of struct-of-array cameras and file lists; the datamanager loads the files
+(and undistorts the real captures' frames). Image sizes come from the
+files' headers (`data/images.py`: PNG by the port's decoder, JPEG by
+Pillow; the GPU machine has no imageio).
 """
 
 from __future__ import annotations
@@ -23,8 +27,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from ..viewer.png import read_png
-from .ply import read_ply_points
+from .images import image_size
+from .ply import create_ply_from_colmap, read_ply_points
 
 # -----------------------------------------------------------------------------
 # Pose utilities (nerfstudio camera_utils semantics)
@@ -124,10 +128,12 @@ def _prev_ids(n: int, interval: int) -> np.ndarray:
     return np.maximum(np.arange(n) - interval, 0)
 
 
-def _image_size(path: Path) -> Tuple[int, int]:
-    """(height, width) of an image file."""
-    h, w = read_png(path).shape[:2]
-    return h, w
+def _attribute_valids(atrb_masks: np.ndarray) -> np.ndarray:
+    """(N, M+1) validity of (N, H, W, M+1) masks: a channel is valid when it
+    is empty or covers more than H*W/300 pixels (ref: :1092-1114)."""
+    hh, ww = atrb_masks.shape[1:3]
+    sums = atrb_masks.sum(axis=(1, 2))
+    return (sums == 0) | (sums > hh * ww / 300)
 
 
 # -----------------------------------------------------------------------------
@@ -152,7 +158,7 @@ def parse_dnerf(
         np.float32,
     )
     image_filenames = [data / (f["file_path"].replace("./", "") + ".png") for f in frames]
-    h, w = _image_size(image_filenames[0])
+    h, w = image_size(image_filenames[0])
     focal = 0.5 * w / math.tan(0.5 * float(meta["camera_angle_x"]))
     n = len(frames)
     prev = _prev_ids(n, interval)
@@ -218,7 +224,7 @@ def parse_synthetic(
     poses_s = poses[indices]
     poses0_s = poses0[indices]
 
-    h, w = _image_size(image_filenames[0])
+    h, w = image_size(image_filenames[0])
     focal = 0.5 * w / math.tan(0.5 * float(meta["camera_angle_x"]))
 
     # times over the FULL capture, then selected: `times0` pairs with frame
@@ -233,9 +239,7 @@ def parse_synthetic(
     atrb_masks = mask_valids = None
     if load_mask:
         stacked = np.stack([np.load(data / "mask" / f"{fid}.npy") for fid in fids])
-        hh, ww = stacked.shape[1:3]
-        sums = stacked.sum(axis=(1, 2))
-        mask_valids = (sums == 0) | (sums > hh * ww / 300)
+        mask_valids = _attribute_valids(stacked)
         atrb_masks = stacked.astype(bool)
 
     nsel = len(indices)
@@ -261,17 +265,266 @@ def parse_synthetic(
     )
 
 
-def parse_real(data: Path, split: str = "train", **kwargs) -> ParsedDataset:
-    """The LiveScene real-capture parser: not ported yet (it needs image
-    undistortion; ROADMAP.md §A)."""
-    raise NotImplementedError("parse_real (LiveScene real captures) is not ported yet: it needs undistortion (ROADMAP.md §A)")
+# -----------------------------------------------------------------------------
+# LiveScene real capture (ref: freegaussian_dataparser.py:681-1114)
+# -----------------------------------------------------------------------------
 
 
-def parse_conerf(data: Path, split: str = "train", **kwargs) -> ParsedDataset:
-    """The CoNeRF parser: not ported yet (it needs undistortion and polygon
-    fill for its annotations; ROADMAP.md §A)."""
-    raise NotImplementedError(
-        "parse_conerf (CoNeRF captures) is not ported yet: it needs undistortion and polygon fill (ROADMAP.md §A)"
+def parse_real(
+    data: Path,
+    split: str = "train",
+    *,
+    interval: int = 2,
+    load_flow: bool = True,
+    load_mask: bool = True,
+    train_split_fraction: float = 0.9,
+    orientation_method: str = "up",
+    center_method: str = "poses",
+    auto_scale: bool = True,
+    scale_factor: float = 1.0,
+    downscale_factor: int = 1,
+) -> ParsedDataset:
+    data = Path(data)
+    meta = json.loads((data / "transforms.json").read_text())
+    frames = sorted(meta["frames"], key=lambda f: f["file_path"])
+
+    def frame_intrinsic(f, key):  # per-frame intrinsics, else the meta's
+        return float(f.get(key, meta.get(key, 0.0)))
+
+    image_filenames, fg_mask_filenames, poses = [], [], []
+    fx, fy, cx, cy, distort = [], [], [], [], []
+    for f in frames:
+        p = f["file_path"]
+        if downscale_factor > 1:
+            p = str(Path(p).parent / f"images_{downscale_factor}" / Path(p).name)
+        image_filenames.append(data / p)
+        # foreground loss mask (nerfstudio per-frame `mask_path`): feeds
+        # batch["mask"], the masked L1+SSIM branch (ref freegaussian_model.py:948-957)
+        fg_mask_filenames.append(data / f["mask_path"] if "mask_path" in f else None)
+        poses.append(np.array(f["transform_matrix"], np.float32))
+        fx.append(frame_intrinsic(f, "fl_x") / downscale_factor)
+        fy.append(frame_intrinsic(f, "fl_y") / downscale_factor)
+        cx.append(frame_intrinsic(f, "cx") / downscale_factor)
+        cy.append(frame_intrinsic(f, "cy") / downscale_factor)
+        distort.append([frame_intrinsic(f, k) for k in ("k1", "k2", "k3", "k4", "p1", "p2")])
+
+    poses, transform = auto_orient_and_center_poses(np.stack(poses), method=orientation_method, center_method=center_method)
+    scale = scale_factor
+    if auto_scale:
+        scale *= auto_scale_poses(poses)
+    poses[:, :3, 3] *= scale
+
+    n = len(frames)
+    prev = _prev_ids(n, interval)
+    poses0 = poses[prev].copy()
+
+    # times from the filename's numeric suffix (ref :942-944)
+    fids = [Path(p).stem.split("_")[-1] for p in image_filenames]
+    try:
+        fid_ints = [int(fid) for fid in fids]
+        max_fid = max(max(fid_ints), 1)
+        times = np.array([i / max_fid for i in fid_ints], np.float32)
+    except ValueError:
+        times = np.linspace(0, 1, n, dtype=np.float32)
+
+    flow_filenames = [data / f"flow_n{interval}" / (Path(p).stem + ".npy") for p in image_filenames]
+    mask_paths = [data / "masks" / f"{fid}.npy" for fid in fids]
+
+    i_train, i_eval = train_eval_split_fraction(n, train_split_fraction)
+    indices = i_train if split == "train" else i_eval
+    sel = lambda lst: [lst[i] for i in indices]
+    image_filenames = sel(image_filenames)
+    h, w = image_size(image_filenames[0])
+
+    atrb_masks = mask_valids = None
+    if load_mask and mask_paths and Path(mask_paths[indices[0]]).exists():
+        stacked = np.stack([np.load(mask_paths[i]) for i in indices])
+        mask_valids = _attribute_valids(stacked)
+        atrb_masks = stacked.astype(bool)
+
+    seed = None
+    ply = data / meta.get("ply_file_path", "sparse_pc.ply")
+    if not ply.exists():
+        # a colmap-processed dataset without its point cloud: convert
+        # points3D.bin -> sparse_pc.ply once, applying applied_transform
+        # (ref: freegaussian_dataparser.py:1010-1062; no prompt, as in the JAX package)
+        colmap_dir = data / "colmap" / "sparse" / "0"
+        if colmap_dir.exists():
+            ply = data / "sparse_pc.ply"
+            create_ply_from_colmap(colmap_dir, ply, meta.get("applied_transform"))
+    if ply.exists():
+        xyz, rgb = read_ply_points(ply)
+        xyz = (np.einsum("ij,nj->ni", transform[:3, :3], xyz) + transform[:3, 3]) * scale
+        seed = (xyz.astype(np.float32), rgb)
+
+    return ParsedDataset(
+        c2w=poses[indices][:, :3, :4],
+        c2w0=poses0[indices][:, :3, :4],
+        fx=np.array(fx, np.float32)[indices],
+        fy=np.array(fy, np.float32)[indices],
+        cx=np.array(cx, np.float32)[indices],
+        cy=np.array(cy, np.float32)[indices],
+        width=w,
+        height=h,
+        times=times[indices],
+        times0=times[prev][indices],
+        image_filenames=image_filenames,
+        flow_filenames=sel(flow_filenames) if load_flow else None,
+        mask_filenames=sel(fg_mask_filenames) if any(m is not None for m in fg_mask_filenames) else None,
+        atrb_masks=atrb_masks,
+        mask_valids=mask_valids,
+        seed_points=seed,
+        dataparser_scale=scale,
+        dataparser_transform=transform,
+        distortion=np.array(distort, np.float32)[indices],
+    )
+
+
+# -----------------------------------------------------------------------------
+# CoNeRF captures (ref: freegaussian_dataparser.py:289-678)
+# -----------------------------------------------------------------------------
+
+
+def _conerf_camera_to_opengl(cam_json: dict, scale: float, downscale: int):
+    """CoNeRF camera/*.json -> OpenGL c2w + pinhole intrinsics.
+
+    CoNeRF stores the world-to-camera orientation and the camera position
+    in OpenCV axes (look +z): flip the y and z columns for OpenGL
+    (ref: freegaussian_dataparser.py:624-637)."""
+    orientation = np.array(cam_json["orientation"], np.float32)  # (3, 3) w2c rotation
+    position = np.array(cam_json["position"], np.float32)
+    focal = float(cam_json["focal_length"]) / downscale
+    pp = np.array(cam_json["principal_point"], np.float32) / downscale
+    R_c2w = orientation.T
+    R_c2w[:, 1:3] *= -1  # OpenCV -> OpenGL
+    c2w = np.concatenate([R_c2w, position[:, None] * scale], axis=-1)
+    return c2w.astype(np.float32), focal, pp
+
+
+def parse_conerf(
+    data: Path,
+    split: str = "train",
+    *,
+    interval: int = 1,
+    downscale: int = 2,
+    load_mask: bool = True,
+    scene_scale: float = 1.0,
+    downscale_factor: int = 1,
+) -> ParsedDataset:
+    """`downscale` picks the rgb/{d}x pyramid level. `downscale_factor` is
+    the reference's own dataparser field, which four shipped scene configs
+    set to 1 (configs/conerf/{blender,metronome,transformer,two-metronomes}.yaml);
+    the JAX package's parser has no such argument and refuses them. The
+    port takes 1 (no further downscale) and refuses any other value."""
+    from . import conerf_annotations as ann
+
+    if downscale_factor != 1:
+        raise ValueError(f"parse_conerf: downscale_factor {downscale_factor} is not supported; set `downscale` "
+                         "(the rgb/{d}x pyramid level)")
+    data = Path(data)
+    dataset = json.loads((data / "dataset.json").read_text())
+    ids = dataset["train_ids"] if split == "train" else dataset["val_ids"]
+    all_ids = dataset["ids"]
+
+    scene = {}
+    if (data / "scene.json").exists():
+        scene = json.loads((data / "scene.json").read_text())
+    scale = float(scene.get("scale", 1.0)) * scene_scale
+
+    def load_cam(fid):
+        return _conerf_camera_to_opengl(json.loads((data / "camera" / f"{fid}.json").read_text()), scale, downscale)
+
+    # cameras0 pairs with frame `idx - interval` of the FULL capture (by its
+    # own camera json), not with the previous frame of the split (ref :489-512)
+    id_to_idx = {fid: i for i, fid in enumerate(all_ids)}
+    cams, focals, pps, cams0, image_filenames, prev_idxs = [], [], [], [], [], []
+    cam_cache = {}
+    for fid in ids:
+        c2w, focal, pp = load_cam(fid)
+        cams.append(c2w)
+        focals.append(focal)
+        pps.append(pp)
+        image_filenames.append(data / "rgb" / f"{downscale}x" / f"{fid}.png")
+        prev_idx = max(id_to_idx[fid] - interval, 0)
+        prev_idxs.append(prev_idx)
+        prev_fid = all_ids[prev_idx]
+        if prev_fid not in cam_cache:
+            cam_cache[prev_fid] = load_cam(prev_fid)[0]
+        cams0.append(cam_cache[prev_fid])
+
+    # times from the frame index over the full capture (ref :485-487); times0
+    # is the paired frame's own time (ref :489-512)
+    max_idx = max(len(all_ids) - 1, 1)
+    times = np.array([id_to_idx[fid] / max_idx for fid in ids], np.float32)
+    times0 = np.array([i / max_idx for i in prev_idxs], np.float32)
+
+    h, w = image_size(image_filenames[0])
+
+    seed = None
+    if (data / "points.ply").exists():
+        xyz, rgb = read_ply_points(data / "points.ply")
+        xyz = (xyz - np.array(scene.get("center", [0, 0, 0]), np.float32)) * scale
+        seed = (xyz.astype(np.float32), rgb)
+
+    # hand-annotated articulation masks and per-frame attribute values
+    # (ref: freegaussian_dataparser.py:156-286), by three routes in order
+    atrb_masks = mask_valids = None
+    coco_json = data / "annotations.coco.json"
+    if load_mask and coco_json.exists():
+        # one COCO json over the capture (dmode="coco", ref :309, :564-566)
+        m = ann.coco_num_attributes(coco_json)
+        per_stem = ann.load_coco_annotations(coco_json, h, w, m, downscale)
+        atrb_masks = np.stack([per_stem.get(str(fid), np.zeros((h, w, m + 1), bool)) for fid in ids])
+        mask_valids = _attribute_valids(atrb_masks)
+    elif load_mask and (data / "annotations").exists():
+        ann_dir = data / "annotations"
+        m = ann.discover_num_attributes(data)
+        if any(ann_dir.glob("*_segmentation.npy")):
+            # blender-exported segmentation arrays (ref :241-265)
+            atrb_masks, mask_valids = ann.load_blender_annotations(ann_dir, ids, h, w, max(m, 1))
+        elif m > 0:
+            masks = []
+            for fid in ids:
+                mk = ann.load_conerf_annotation(ann_dir / f"{fid}.json", h, w, m, downscale)
+                masks.append(mk if mk is not None else np.zeros((h, w, m + 1), bool))
+            atrb_masks = np.stack(masks)
+            mask_valids = _attribute_valids(atrb_masks)
+
+    # scene box from scene.json's bbox, in OpenGL axes (ref :454-470)
+    scene_box = None
+    if "bbox" in scene:
+        aabb = (np.asarray(scene["bbox"], np.float32) - np.asarray(scene.get("center", [0, 0, 0]), np.float32)[None]) * scale
+        aabb = aabb[:, [0, 2, 1]]
+        aabb[:, 2] *= -1
+        scene_box = np.sort(aabb, axis=0)
+
+    # per-frame scalar attribute values (ref :268-286 load_conerf_values)
+    atrb_values = atrb_val_masks = None
+    m_attrs = atrb_masks.shape[-1] - 1 if atrb_masks is not None else 0
+    for cand in (data / "annotations" / "values.yaml", data / "values.yaml"):
+        if cand.exists():
+            atrb_values, atrb_val_masks = ann.load_conerf_values_yaml(cand, [int(str(fid)) for fid in ids], max(m_attrs, 1))
+            break
+
+    return ParsedDataset(
+        c2w=np.stack(cams),
+        c2w0=np.stack(cams0),
+        fx=np.array(focals, np.float32),
+        fy=np.array(focals, np.float32),
+        cx=np.array([p[0] for p in pps], np.float32),
+        cy=np.array([p[1] for p in pps], np.float32),
+        width=w,
+        height=h,
+        times=times,
+        times0=times0,
+        image_filenames=image_filenames,
+        atrb_masks=atrb_masks,
+        mask_valids=mask_valids,
+        seed_points=seed,
+        dataparser_scale=scale,
+        scene_box=scene_box,
+        atrb_values=atrb_values,
+        atrb_val_masks=atrb_val_masks,
     )
 
 

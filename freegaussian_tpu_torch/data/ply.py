@@ -1,10 +1,12 @@
 """Minimal PLY point clouds (twin of `freegaussian_tpu/data/ply.py`): the
 reader takes ascii and binary little-endian, x/y/z and optional
 red/green/blue vertex properties, the subset the reference uses for SfM seed
-points; the writer gives binary little-endian (the cluster visualization)."""
+points; the writer gives binary little-endian (the cluster visualization,
+and the seed points `create_ply_from_colmap` converts from a colmap model)."""
 
 from __future__ import annotations
 
+import struct
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -89,3 +91,42 @@ def write_ply_points(path, xyz: np.ndarray, rgb: Optional[np.ndarray] = None) ->
             rec["x"], rec["y"], rec["z"] = xyz[:, 0], xyz[:, 1], xyz[:, 2]
             rec["red"], rec["green"], rec["blue"] = rgb[:, 0], rgb[:, 1], rgb[:, 2]
             f.write(rec.tobytes())
+
+
+def read_colmap_points3d(recon_dir) -> Tuple[np.ndarray, np.ndarray]:
+    """A colmap sparse model's points, from `points3D.bin` (else
+    `points3D.txt`): (xyz (P, 3) float64, rgb (P, 3) uint8)."""
+    recon_dir = Path(recon_dir)
+    bin_path, txt_path = recon_dir / "points3D.bin", recon_dir / "points3D.txt"
+    xyzs, rgbs = [], []
+    if bin_path.exists():
+        with open(bin_path, "rb") as f:
+            (num_points,) = struct.unpack("<Q", f.read(8))
+            for _ in range(num_points):
+                data = struct.unpack("<Q3d3Bd", f.read(8 + 24 + 3 + 8))  # id, xyz, rgb, error
+                xyzs.append(data[1:4])
+                rgbs.append(data[4:7])
+                (track_len,) = struct.unpack("<Q", f.read(8))
+                f.seek(8 * track_len, 1)
+    elif txt_path.exists():
+        for line in txt_path.read_text().splitlines():
+            if line.startswith("#") or not line.strip():
+                continue
+            parts = line.split()
+            xyzs.append([float(v) for v in parts[1:4]])
+            rgbs.append([int(v) for v in parts[4:7]])
+    else:
+        raise FileNotFoundError(f"no points3D.bin/.txt under {recon_dir}")
+    return np.asarray(xyzs, np.float64), np.asarray(rgbs, np.uint8)
+
+
+def create_ply_from_colmap(recon_dir, out_path, applied_transform=None):
+    """Convert a colmap sparse model to a binary PLY point cloud, applying the
+    dataset's `applied_transform` (colmap world -> transforms.json world), as
+    nerfstudio's create_ply_from_colmap does (ref: freegaussian_dataparser.py:1010-1062)."""
+    xyz, rgb = read_colmap_points3d(recon_dir)
+    if applied_transform is not None:
+        t = np.asarray(applied_transform, np.float64)
+        xyz = xyz @ t[:3, :3].T + t[:3, 3]
+    write_ply_points(out_path, xyz.astype(np.float32), rgb)
+    return out_path

@@ -1,6 +1,6 @@
-"""Core math ops: quaternions, positional embedding, viewmat convention,
-bilinear interpolation, the integer-factor image downsample, SH DC
-conversion and learning-rate schedules.
+"""Core math ops: quaternions, positional embedding, viewmat and OpenCV
+camera conventions, bilinear interpolation, the integer-factor image
+downsample, SH DC conversion and learning-rate schedules.
 
 Torch twins of `freegaussian_tpu/ops/math.py` (same formulas, same band and
 axis orders) for the functions the serving and training paths need. Every
@@ -62,10 +62,37 @@ def get_viewmat(c2w: torch.Tensor) -> torch.Tensor:
     R = R * flip[None, :]
     R_inv = R.transpose(-1, -2)
     T_inv = -(R_inv @ T)
-    top = torch.cat([R_inv, T_inv], dim=-1)
-    bottom = torch.zeros_like(top[..., :1, :])
+    return to_4x4(torch.cat([R_inv, T_inv], dim=-1))
+
+
+def to_4x4(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 4) -> (..., 4, 4) with a [0, 0, 0, 1] bottom row; (..., 4, 4) as given."""
+    if m.shape[-2] == 4:
+        return m
+    bottom = torch.zeros_like(m[..., :1, :])
     bottom[..., 0, 3] = 1.0
-    return torch.cat([top, bottom], dim=-2)
+    return torch.cat([m, bottom], dim=-2)
+
+
+def opengl_to_opencv_c2w(c2w: torch.Tensor, keep_original_world_coordinate: bool = False) -> torch.Tensor:
+    """An OpenGL-convention c2w (..., 3|4, 4) in the OpenCV convention (the
+    camera's y and z columns flipped), by default also undoing nerfstudio's
+    world-axis permutation (ref: preprocess/epipolar_flow.py:217-229
+    `opengl2cv`); the output has the input's row count."""
+    out = to_4x4(c2w)
+    if not keep_original_world_coordinate:
+        out = torch.cat([out[..., 0:1, :], -out[..., 2:3, :], out[..., 1:2, :], out[..., 3:4, :]], dim=-2)
+    flip = torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=out.dtype, device=out.device)
+    out = torch.cat([out[..., :3, :] * flip, out[..., 3:, :]], dim=-2)
+    return out[..., :3, :] if c2w.shape[-2] == 3 else out
+
+
+def euler_xyz_from_matrix(R: torch.Tensor) -> torch.Tensor:
+    """Intrinsic xyz Euler angles (3,) of a rotation matrix (scipy's 'xyz' order)."""
+    y = torch.arcsin(torch.clamp(-R[2, 0], -1.0, 1.0))
+    x = torch.arctan2(R[2, 1], R[2, 2])
+    z = torch.arctan2(R[1, 0], R[0, 0])
+    return torch.stack([x, y, z])
 
 
 def num_sh_bases(degree: int) -> int:

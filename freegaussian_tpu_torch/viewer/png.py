@@ -1,10 +1,10 @@
 """PNG encoding and decoding with the standard library (zlib + struct).
 
-The viewer serves PNG where the JAX package serves JPEG: the GPU machine has
-no imageio or torchvision, and the port imports no image library.
 `decode_png` (and `read_png` for a file) is the port's counterpart of
-`imageio.imread` for the datasets' images: 8-bit gray, gray + alpha, RGB
-and RGBA, non-interlaced, every row filter.
+`imageio.imread` for the datasets' PNG images (the GPU machine has no
+imageio): 8-bit gray, gray + alpha, RGB, RGBA and palette, non-interlaced,
+every row filter. `encode_png` writes the render verb's and eval dumps'
+frames.
 """
 
 from __future__ import annotations
@@ -80,16 +80,17 @@ def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes (8-bit gray, gray + alpha, RGB or RGBA, non-interlaced, any
-    of the five row filters) -> uint8 (H, W) for gray, else (H, W, C) with C
-    = 2, 3 or 4, as `imageio.imread` returns them. Checks the signature and
-    every chunk's CRC; raises on anything else (palette images, other bit
+    """PNG bytes (8-bit gray, gray + alpha, RGB, RGBA or palette,
+    non-interlaced, any of the five row filters) -> uint8 (H, W) for gray,
+    else (H, W, C) with C = 2, 3 or 4, as `imageio.imread` returns them (a
+    palette image as RGB, or RGBA when it has a tRNS chunk). Checks the
+    signature and every chunk's CRC; raises on anything else (other bit
     depths, interlacing)."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG")
     pos = 8
     idat = []
-    header = None
+    header = palette = alpha = None
     while pos < len(data):
         (n,) = struct.unpack(">I", data[pos : pos + 4])
         kind = data[pos + 4 : pos + 8]
@@ -100,24 +101,36 @@ def decode_png(data: bytes) -> np.ndarray:
         pos += 12 + n
         if kind == b"IHDR":
             width, height, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", body)
-            if depth != 8 or ctype not in _CHANNELS or interlace != 0:
+            if depth != 8 or (ctype not in _CHANNELS and ctype != 3) or interlace != 0:
                 raise ValueError(
-                    f"only 8-bit gray, gray + alpha, RGB or RGBA non-interlaced PNG is supported "
+                    f"only 8-bit gray, gray + alpha, RGB, RGBA or palette non-interlaced PNG is supported "
                     f"(bit depth {depth}, color type {ctype}, interlace {interlace})"
                 )
-            header = (width, height, _CHANNELS[ctype])
+            header = (width, height, _CHANNELS.get(ctype, 1), ctype == 3)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            alpha = np.frombuffer(body, np.uint8)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
             break
     if header is None:
         raise ValueError("PNG without IHDR")
-    width, height, channels = header
+    width, height, channels, indexed = header
     stride = width * channels
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != height * (1 + stride):
         raise ValueError(f"PNG image data holds {raw.size} bytes, want {height * (1 + stride)}")
     img = _unfilter(raw.reshape(height, 1 + stride), height, stride, channels)
+    if indexed:
+        if palette is None:
+            raise ValueError("palette PNG without PLTE")
+        table = palette
+        if alpha is not None:
+            table = np.concatenate([palette, np.full((len(palette), 1), 255, np.uint8)], axis=1)
+            table[: len(alpha), 3] = alpha[: len(palette)]
+        return table[img.reshape(height, width)]
     return img.reshape(height, width) if channels == 1 else img.reshape(height, width, channels)
 
 

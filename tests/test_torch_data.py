@@ -1,7 +1,7 @@
 """The port's data layer and config loader against the JAX package's, on the
 same files: the dataparsers (every ParsedDataset field), the PLY reader, the
-PNG decoder (against imageio), the datamanager (frame order and batches),
-the flow resize (against cv2.resize(INTER_NEAREST)) and the YAML overlay
+PNG decoder (against imageio), the datamanager (frame order and batches,
+and the undistorted batches of a distorted real capture), the flow resize (against cv2.resize(INTER_NEAREST)) and the YAML overlay
 (against yaml.safe_load and the JAX resolver over every file in configs/).
 Everything here is exact: the same numpy arithmetic on both sides."""
 
@@ -31,6 +31,7 @@ from freegaussian_tpu_torch.data.ply import read_ply_points as t_read_ply
 from freegaussian_tpu_torch.engine import config as t_config
 from freegaussian_tpu_torch.viewer.png import _SIGNATURE, _chunk, decode_png
 from test_data import _write_png, make_synthetic_dataset
+from torch_port_helpers import make_real_capture
 
 REPO = Path(__file__).resolve().parent.parent
 CONFIGS = sorted(p.relative_to(REPO).as_posix() for p in (REPO / "configs").rglob("*.yaml"))
@@ -97,9 +98,7 @@ def test_pose_utilities_match_jax():
         j_parsers.rotation_matrix_between(np.array([0, 1.0, 0]), np.array([0, 0, 1.0])),
     )
     assert set(t_parsers.PARSERS) == set(j_parsers.PARSERS)
-    for name in ("real", "conerf"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_parsers.PARSERS[name](Path("."), "train")
+    assert {k: f.__name__ for k, f in t_parsers.PARSERS.items()} == {k: f.__name__ for k, f in j_parsers.PARSERS.items()}
 
 
 @pytest.mark.parametrize("fmt", ["binary", "ascii"])
@@ -217,13 +216,27 @@ def test_datamanager_matches_jax(tmp_path):
     assert [c.time.item() for c, _ in tdm.eval_frames()] == [float(c.time) for c, _ in jdm.eval_frames()]
 
 
-def test_datamanager_refuses_distortion(tmp_path):
-    make_synthetic_dataset(tmp_path, n=3)
-    parsed = t_parsers.parse_synthetic(tmp_path, "train")
-    parsed.distortion = np.zeros((len(parsed), 6), np.float32)
-    parsed.distortion[1, 0] = 0.01
-    with pytest.raises(NotImplementedError, match="undistortion"):
-        TDatamanager(parsed, device="cpu")
+def test_datamanager_undistorts_like_jax(tmp_path):
+    """A distorted real capture (JPEG frames, per-frame intrinsics and
+    distortion, foreground and articulation masks, flow): every frame's
+    camera and every batch tensor equal the JAX package's (OpenCV's
+    undistortion), and each frame is cropped to its valid rectangle."""
+    root = make_real_capture(tmp_path, n=5, h=30, w=40, distortion=(-0.2, 0.04, 0.0, 0.0, 0.004, -0.003))
+    for d in ("flow_n2",):
+        (root / d).mkdir()
+        for i in range(5):
+            np.save(root / d / f"frame_{i:05d}.npy", np.random.default_rng(i).normal(size=(30, 40, 2)).astype(np.float32))
+    parsed_t, parsed_j = t_parsers.parse_real(root, "train"), j_parsers.parse_real(root, "train")
+    tdm, jdm = TDatamanager(parsed_t, seed=3, device="cpu"), JDatamanager(parsed_j, seed=3)
+    for i in range(len(tdm)):
+        (tcam, tb), (jcam, jb) = tdm.get_batch(i), jdm.get_batch(i)
+        assert sorted(tb) == sorted(jb) == ["atrb_mask", "flow", "image", "mask", "mask_valid"]
+        for k in jb:
+            np.testing.assert_array_equal(tb[k].numpy(), np.asarray(jb[k]), err_msg=k)
+        for f in ("c2w", "fx", "fy", "cx", "cy", "time"):
+            np.testing.assert_array_equal(getattr(tcam, f).numpy(), np.asarray(getattr(jcam, f)), err_msg=f)
+        assert (tcam.width, tcam.height) == (jcam.width, jcam.height) and tcam.width < 40
+        np.testing.assert_array_equal(tdm.camera0(i).cx.numpy(), np.asarray(jdm.camera0(i).cx))
 
 
 @pytest.mark.parametrize("src,dst", [((24, 32), (12, 16)), ((24, 32), (48, 64)), ((17, 23), (30, 11)), ((100, 100), (37, 73))])

@@ -274,3 +274,175 @@ def vote_boundary_rows(params, alive, arrs, deform=None, low=-0.1, high=1.0, min
     if min_alpha > 0.0:
         near |= np.abs(a_pix - min_alpha) < 1e-5
     return near & np.asarray(alive)
+
+
+def _write_jpeg(path, img):
+    from PIL import Image
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(img).save(path, "JPEG")
+
+
+def make_real_capture(root, n=6, h=24, w=32, *, seed=0, distortion=(-0.08, 0.01, 0.0, 0.0, 0.002, -0.001),
+                      per_frame=True, downscale=1, num_attributes=2, fg_masks=True, points="ply",
+                      depth=True, opticalflow=True):
+    """A seeded LiveScene real capture in nerfstudio's layout: JPEG frames
+    `images/frame_{i:05d}.jpg`
+    on an arc looking at the origin (`images/images_{downscale}/` at
+    1/downscale), `transforms.json` with the meta's
+    intrinsics and Brown distortion (k1, k2, k3, k4, p1, p2) and, with
+    `per_frame`, per-frame overrides on every other frame; `masks/{fid}.npy`
+    (H, W, M+1) articulation boxes, `mask_path` PNG foreground masks,
+    seed points as `sparse_pc.ply` (`points="ply"`), a colmap model
+    (`"bin"` / `"txt"`, with an applied_transform) or none, and
+    `depth/{stem}.npy` / `opticalflow/{stem}.npy` for the interflow verb."""
+    import json
+    import struct
+    from pathlib import Path
+
+    from PIL import Image
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    k1, k2, k3, k4, p1, p2 = distortion
+    meta = {"fl_x": 0.9 * w, "fl_y": 0.92 * w, "cx": w / 2 + 0.7, "cy": h / 2 - 0.4,
+            "k1": k1, "k2": k2, "k3": k3, "k4": k4, "p1": p1, "p2": p2, "frames": []}
+    for i in range(n):
+        ang = -0.5 + i / max(n - 1, 1)
+        c2w = np.eye(4)
+        c2w[:3] = look_at_c2w((3.0 * np.sin(ang), 0.4 + 0.05 * i, 3.0 * np.cos(ang)))
+        stem = f"frame_{i:05d}"
+        img = rng.integers(0, 256, size=(h, w, 3)).astype(np.uint8)
+        _write_jpeg(root / "images" / f"{stem}.jpg", img)
+        if downscale > 1:
+            # where both parsers look: beside the frame (`images/images_{d}/`)
+            _write_jpeg(root / "images" / f"images_{downscale}" / f"{stem}.jpg", img[::downscale, ::downscale])
+        frame = {"file_path": f"images/{stem}.jpg", "transform_matrix": c2w.tolist()}
+        if per_frame and i % 2:
+            frame.update(fl_x=meta["fl_x"] * 1.05, cx=meta["cx"] - 0.3, k1=k1 * 1.1 if k1 else 0.0)
+        if fg_masks:
+            fg = np.zeros((h, w), np.uint8)
+            fg[:, : w - 2 - i % 3] = 255
+            (root / "fg").mkdir(parents=True, exist_ok=True)
+            Image.fromarray(fg).save(root / "fg" / f"{stem}.png")
+            frame["mask_path"] = f"fg/{stem}.png"
+        meta["frames"].append(frame)
+        hh, ww = h // downscale, w // downscale
+        if num_attributes:
+            m = np.zeros((hh, ww, num_attributes + 1), bool)
+            for c in range(1, num_attributes + 1):
+                y, x = rng.integers(0, hh // 2), rng.integers(0, ww // 2)
+                m[y : y + hh // 2, x : x + ww // 2, c] = i % 3 != c
+            m[..., 0] = ~m[..., 1:].any(-1)
+            (root / "masks").mkdir(parents=True, exist_ok=True)
+            np.save(root / "masks" / f"{i:05d}.npy", m)
+        if depth:
+            d = rng.uniform(2.0, 5.0, size=(hh, ww, 1)).astype(np.float32)
+            d[0, 0] = np.inf
+            (root / "depth").mkdir(parents=True, exist_ok=True)
+            np.save(root / "depth" / f"{stem}.npy", d)
+        if opticalflow and i % 3 != 2:  # a frame without optical flow: zero flow
+            (root / "opticalflow").mkdir(parents=True, exist_ok=True)
+            np.save(root / "opticalflow" / f"{stem}.npy", rng.normal(size=(hh, ww, 2)).astype(np.float32))
+    xyz = rng.normal(scale=0.5, size=(40, 3))
+    rgb = rng.integers(0, 256, size=(40, 3)).astype(np.uint8)
+    if points == "ply":
+        from freegaussian_tpu.data.ply import write_ply_points
+
+        write_ply_points(root / "sparse_pc.ply", xyz.astype(np.float32), rgb)
+    elif points in ("bin", "txt"):
+        sparse = root / "colmap" / "sparse" / "0"
+        sparse.mkdir(parents=True)
+        meta["applied_transform"] = [[0, 1, 0, 0.1], [1, 0, 0, -0.2], [0, 0, -1, 0.3]]
+        if points == "bin":
+            with open(sparse / "points3D.bin", "wb") as f:
+                f.write(struct.pack("<Q", len(xyz)))
+                for k, (p, c) in enumerate(zip(xyz, rgb)):
+                    track = rng.integers(0, 9, size=(int(k % 3) + 1, 2))
+                    f.write(struct.pack("<Q3d3Bd", k + 1, *p, *c.tolist(), 0.5))
+                    f.write(struct.pack("<Q", len(track)) + track.astype("<i4").tobytes())
+        else:
+            lines = ["# 3D point list", *(f"{k + 1} {float(p[0])!r} {float(p[1])!r} {float(p[2])!r} {c[0]} {c[1]} {c[2]} 0.5 1 2"
+                                         for k, (p, c) in enumerate(zip(xyz, rgb)))]
+            (sparse / "points3D.txt").write_text("\n".join(lines) + "\n")
+    (root / "transforms.json").write_text(json.dumps(meta))
+    return root
+
+
+def make_conerf_capture(root, n=5, h=24, w=32, *, seed=0, downscale=2, route="polygons", num_attributes=2,
+                        values=True, bbox=True, points=True):
+    """A seeded CoNeRF capture: `dataset.json` (train ids every frame but the
+    last, val ids the last), `camera/{fid}.json` (OpenCV orientation and
+    position, focal, principal point at full resolution), PNG frames
+    `rgb/{downscale}x/{fid}.png` at (h, w), `scene.json` (scale, center and,
+    with `bbox`, a bbox), `points.ply`, and annotations by `route`:
+    "polygons" (`annotations/{fid}.json` on every other frame, in the
+    polygons / shapes / points / vertices layouts), "coco"
+    (`annotations.coco.json`) or "blender" (`annotations/{fid}_segmentation.npy`);
+    `values.yaml` (frame / class / value entries) with `values`."""
+    import json
+    from pathlib import Path
+
+    import yaml
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    ids = [f"{i:06d}" for i in range(n)]
+    (root / "dataset.json").parent.mkdir(parents=True, exist_ok=True)
+    (root / "dataset.json").write_text(json.dumps({"ids": ids, "train_ids": ids[:-1], "val_ids": ids[-1:]}))
+    scene = {"scale": 0.6, "center": [0.1, -0.2, 0.05]}
+    if bbox:
+        scene["bbox"] = [[-1.0, -0.8, -1.2], [1.1, 0.9, 1.3]]
+    (root / "scene.json").write_text(json.dumps(scene))
+    (root / "camera").mkdir()
+    for i, fid in enumerate(ids):
+        c2w = look_at_c2w((2.0 * np.sin(0.2 * i), 0.3, 2.0 * np.cos(0.2 * i)))
+        R_c2w = c2w[:, :3].copy()
+        R_c2w[:, 1:3] *= -1  # OpenGL -> OpenCV axes
+        (root / "camera" / f"{fid}.json").write_text(json.dumps({
+            "orientation": R_c2w.T.tolist(), "position": c2w[:, 3].tolist(),
+            "focal_length": 0.9 * w * downscale, "principal_point": [w * downscale / 2 + 0.6, h * downscale / 2 - 0.3],
+        }))
+        img = rng.integers(0, 256, size=(h, w, 3)).astype(np.uint8)
+        from PIL import Image
+
+        (root / "rgb" / f"{downscale}x").mkdir(parents=True, exist_ok=True)
+        Image.fromarray(img).save(root / "rgb" / f"{downscale}x" / f"{fid}.png")
+    if points:
+        from freegaussian_tpu.data.ply import write_ply_points
+
+        write_ply_points(root / "points.ply", rng.normal(size=(30, 3)).astype(np.float32),
+                         rng.integers(0, 256, size=(30, 3)).astype(np.uint8))
+
+    def poly(scale=downscale):
+        c = rng.uniform([0.2 * w, 0.2 * h], [0.8 * w, 0.8 * h])
+        ang = np.sort(rng.uniform(0, 2 * np.pi, 6))
+        r = rng.uniform(2, 0.4 * h, 6)
+        return (np.stack([c[0] + r * np.cos(ang), c[1] + r * np.sin(ang)], -1) * scale).round(2).tolist()
+
+    ann = root / "annotations"
+    if route == "polygons":
+        ann.mkdir()
+        layouts = [("polygons", "points"), ("shapes", "points"), ("polygons", "vertices")]
+        for i, fid in enumerate(ids[::2]):
+            key, pts = layouts[i % len(layouts)]
+            attr = "attribute" if key == "polygons" else "label"
+            entries = [{attr: a, pts: poly()} for a in range(num_attributes)]
+            (ann / f"{fid}.json").write_text(json.dumps({key: entries}))
+    elif route == "coco":
+        images = [{"id": 10 + i, "file_name": f"{fid}.png"} for i, fid in enumerate(ids)]
+        anns = [{"image_id": 10 + i, "category_id": a + 1, "segmentation": [sum(poly(), [])]}
+                for i in range(0, n, 2) for a in range(num_attributes)]
+        cats = [{"id": a + 1, "name": f"part{a}"} for a in range(num_attributes)]
+        (root / "annotations.coco.json").write_text(json.dumps({"images": images, "annotations": anns, "categories": cats}))
+    elif route == "blender":
+        ann.mkdir()
+        for fid in ids[::2]:
+            seg = rng.uniform(size=(h, w, num_attributes)) < 0.2
+            np.save(ann / f"{fid}_segmentation.npy", seg)
+        (ann / "values.json").write_text(json.dumps({fid: [0.5] * num_attributes for fid in ids}))
+    if values:
+        entries = [{"frame": int(fid), "class": a, "value": float(rng.uniform(-1, 1))}
+                   for fid in ids[1::2] for a in range(num_attributes)]
+        (root / "values.yaml").write_text(yaml.safe_dump(entries))
+    return root
