@@ -10,9 +10,10 @@ slider viewer over a stage-2 checkpoint, and `make_control_train_step`),
 the `train` and `train-control` CLI verbs over a dataset on disk, the
 `viewer` verb over the checkpoints those verbs write, the `cluster`,
 `eval`, `render` and `export` verbs that complete the two-stage pipeline,
-and the real-capture front end (`interflow`, undistortion, the LiveScene
-real and CoNeRF parsers, polygon masks), with every kernel built from this
-checkout. Phases, printed as each ends:
+the real-capture front end (`interflow`, undistortion, the LiveScene
+real and CoNeRF parsers, polygon masks), camera optimization and the
+bilateral grid in the stage-1 step, band frames, and the multi-GPU step at
+world size 1, with every kernel built from this checkout. Phases, printed as each ends:
 
   1. device   the card's name and power limit, as nvidia-smi gives them
   2. build    nvcc builds every kernel source, one process per source, all
@@ -161,6 +162,41 @@ checkout. Phases, printed as each ends:
               plain versions at every (C, tile) the verbs' calls took at that
               size, and the deform field, with phase 4's budgets
               (`captures kernels` lines)
+ 21. extras   camera optimization (SO3xR3) and the bilateral grid in the
+              stage-1 step (`extras` lines): one step on the card against
+              the CPU as phase 7's check does (4000 Gaussians at 160x120),
+              and at the bench point one step with the kernels against one
+              with the plain compositor on the card (the loss to rtol 1e-4,
+              camera_opt's and bilateral_grid's Adam first moments within
+              1e-4 relative L2, every other within 1e-2); at the bench
+              point, 30 rounds of steps without the extras, with each alone
+              and with both, in turns (median ms, launches); the grid's
+              slice, its TV loss and the camera adjustment (ms); the `train`
+              verb with both enabled by the YAML overlay over phase 13's
+              dataset (10 steps), its checkpoint reloaded equal, and `eval`
+              over it
+ 22. bands    the bench frame rendered in horizontal bands through the
+              compositor and its backward (rows 1 and 2 on band frames: 2
+              bands of 240 rows at tile 16 and at tile 32, the geometry of
+              phase 23's (1, 2) mesh, 3 of 160 at tile 32): each band's
+              kernels against their plain versions with phase 4's budgets;
+              stitched, against the full frame: the forward within phase
+              4's budget, the per-Gaussian gradients summed over the bands
+              at the backward's budget, and where the band tile grid is the
+              frame's the kernel rows pair for pair and the bands'
+              intersections summing to the frame's; each band's kernel ms
+              and launches (`bands` lines)
+ 23. parallel `make_parallel_train_step` at (data 1, tile 1) over NCCL, world
+              size 1 on this card, the process group set up here: one step
+              against the single-GPU step from the same state and draws
+              (loss rtol 1e-4, Adam first moments and the updates within
+              1e-2 relative L2), then 60 steps of each in turns (ms, the
+              parallel steps' launches); then two ranks on this card over
+              gloo with CUDA tensors (gloo runs every collective the step
+              uses on them; it aborts on point-to-point sends, which the
+              step does not use; PERF.md §7) at (1, 2) and
+              (2, 1): one step against the single steps (loss, first
+              moments), the ranks' parameters bit-equal
 
 Then one JSON line of kernel records and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -173,6 +209,7 @@ and exits non-zero without them. It uses no network: the viewer binds
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import json
 import statistics
@@ -240,6 +277,9 @@ TRAIN_MODEL = dict(
 TRAIN_DENSIFY = dict(refine_start=10, refine_every=5, reset_alpha_every=30)
 # GPU vs CPU train step: the relative L2 difference of each Adam first moment
 TRAIN_CHECK_RTOL = 1e-2
+# one stage-1 training step's launches: the deform field runs at the frame's
+# time and at the paired frame's
+STEP_LAUNCHES = {"rasterize_fwd": 1, "rasterize_bwd": 1, "deform_fwd": 2, "deform_bwd": 2}
 
 
 def kernel_modules():
@@ -257,6 +297,11 @@ def zero_launches():
     for m in kernel_modules():
         for k in m.LAUNCHES:
             m.LAUNCHES[k] = 0
+
+
+def step_launch_counts(steps: int) -> dict:
+    """Every kernel's launches in `steps` stage-1 training steps."""
+    return {name: steps * STEP_LAUNCHES.get(name, 0) for name in launches()}
 
 
 def die(msg: str, code: int = 2):
@@ -912,8 +957,8 @@ def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16
 
 def _reduction_error(rows, isect) -> dict:
     """The per-Gaussian sum of the backward's rows as the step takes it
-    (`reduce_rows_by_gid`: an f32 prefix sum over the Gaussian-sorted rows
-    and differences at the group boundaries), and a plain f32 sum
+    (`reduce_rows_by_gid`: an f64 prefix sum over the Gaussian-sorted rows
+    and differences at the group boundaries, rounded to f32), and a plain f32 sum
     (`index_add_`), each against a float64 sum of the same rows: the largest
     error, the largest sum, the error relative to its own sum where that sum
     exceeds 1e-3 of the largest, and the normwise error."""
@@ -1098,7 +1143,7 @@ def phase_check(ckpt: Path):
         raise AssertionError("GPU frame differs from the CPU frame")
 
 
-def build_train_case(model, width: int, height: int, device=None, flow_3d: bool = True):
+def build_train_case(model, width: int, height: int, device=None, flow_3d: bool = True, extras: bool | dict = False):
     """The training phase's inputs, from the loaded bench scene: a trainable
     copy of its parameters and deform field (bf16 trunk), the training
     config (tile 32, warm-up 0, black background, configs/sim/base.yaml's
@@ -1106,21 +1151,22 @@ def build_train_case(model, width: int, height: int, device=None, flow_3d: bool 
     t = 0.4, and seeded synthetic targets: the image is the scene rendered
     with its SH DC colors shifted by N(0, 0.3) noise, depth0 the scene's
     expected depth from the paired camera, the flow a constant (0.8, -0.5) px
-    motion plus N(0, 0.3) noise. Returns (state, step_fn, camera, camera0, batch)."""
+    motion plus N(0, 0.3) noise. With `extras` (`train_case_config`) the
+    state holds camera 0's pose adjustment and its bilateral grid (seeded:
+    adjustments N(0, 0.01), grid identity + N(0, 0.02)), which the step
+    optimizes and applies where the config enables them. Returns (state,
+    step_fn, camera, camera0, batch)."""
     import copy
     import dataclasses
 
     import torch
 
-    from freegaussian_tpu_torch.engine.optimizers import OptimizersConfig, make_optimizers
     from freegaussian_tpu_torch.engine.train_step import create_train_state, make_train_step
-    from freegaussian_tpu_torch.models.densify import DensifyConfig
-    from freegaussian_tpu_torch.models.splat_model import SplatConfig, forward
+    from freegaussian_tpu_torch.models.bilagrid import init_bilateral_grids
+    from freegaussian_tpu_torch.models.splat_model import forward
 
     device = device or DEVICE
-    cfg = dataclasses.replace(SplatConfig(**TRAIN_MODEL), deform_bf16=model.cfg.deform_bf16)
-    if not flow_3d:
-        cfg = dataclasses.replace(cfg, flow_3d_loss_weight=0.0)
+    cfg, optimizers, densify_cfg = train_case_config(model, flow_3d=flow_3d, extras=extras)
     params = {k: v.detach().to(device).clone() for k, v in model.params.items()}
     alive = model.alive.to(device).clone()
     deform = copy.deepcopy(model.deform).to(device).requires_grad_(True)
@@ -1132,10 +1178,36 @@ def build_train_case(model, width: int, height: int, device=None, flow_3d: bool 
     depth0 = forward(cfg, params, alive, camera0, deform=deform, sh_degree_now=3, warmed_up=True, render_mode="RGB+ED")["depth"]
     flow = torch.tensor([0.8, -0.5]) + 0.3 * torch.randn(height, width, 2, generator=g)
     batch = {"image": image, "depth0": depth0, "flow": flow.to(device)}
-    optimizers = make_optimizers(OptimizersConfig())
-    state = create_train_state(params, alive, deform, optimizers, generator=torch.Generator(device=device).manual_seed(SEED))
-    step_fn = make_train_step(cfg, DensifyConfig(**TRAIN_DENSIFY), optimizers, num_train_data=0)
+    extra_tensors = {}
+    if extras:
+        # one camera's seeded adjustment and grid, so both change the frame
+        ge = torch.Generator(device="cpu").manual_seed(SEED + 71)
+        extra_tensors = dict(
+            camera_opt=(0.01 * torch.randn(1, 6, generator=ge)).to(device),
+            bilagrid=(init_bilateral_grids(1, device="cpu") + 0.02 * torch.randn(1, 8, 16, 16, 12, generator=ge)).to(device),
+        )
+    state = create_train_state(params, alive, deform, optimizers, generator=torch.Generator(device=device).manual_seed(SEED),
+                               **extra_tensors)
+    step_fn = make_train_step(cfg, densify_cfg, optimizers, num_train_data=0)
     return state, step_fn, camera, camera0, batch
+
+
+def train_case_config(model, flow_3d: bool = True, extras: bool | dict = False):
+    """The training phases' (SplatConfig, optimizers, DensifyConfig); with
+    `extras`, camera optimization (SO3xR3) and the bilateral grid on (True),
+    or the SplatConfig fields of a dict set."""
+    import dataclasses
+
+    from freegaussian_tpu_torch.engine.optimizers import OptimizersConfig, make_optimizers
+    from freegaussian_tpu_torch.models.densify import DensifyConfig
+    from freegaussian_tpu_torch.models.splat_model import SplatConfig
+
+    cfg = dataclasses.replace(SplatConfig(**TRAIN_MODEL), deform_bf16=model.cfg.deform_bf16)
+    if not flow_3d:
+        cfg = dataclasses.replace(cfg, flow_3d_loss_weight=0.0)
+    if extras:
+        cfg = dataclasses.replace(cfg, **(EXTRAS_MODEL if extras is True else extras))
+    return cfg, make_optimizers(OptimizersConfig()), DensifyConfig(**TRAIN_DENSIFY)
 
 
 def phase_train(model) -> dict:
@@ -1177,9 +1249,7 @@ def phase_train(model) -> dict:
         f"median step {steady:.2f} ms over the last {TRAIN_STEPS - 2} (first {step_ms[0]:.1f} ms); "
         f"train_step_pixels_per_sec {pps:.0f}"
     )
-    # the deform field runs at the frame's time and at the paired frame's
-    per_step = {"rasterize_fwd": 1, "rasterize_bwd": 1, "deform_fwd": 2, "deform_bwd": 2}
-    want = {name: TRAIN_STEPS * per_step.get(name, 0) for name in counts}
+    want = step_launch_counts(TRAIN_STEPS)
     if counts != want:
         raise AssertionError(f"launches {counts} in {TRAIN_STEPS} train steps, want {want}")
     if len(refines) != 1:
@@ -2733,6 +2803,553 @@ def phase_captures(tmp: Path, model, bare_step_ms: float, card: str) -> dict:
     return {"launches": total, "undistort": undistort, "interflow": interflow, "train": train, "conerf": conerf}
 
 
+# ---------------------------------------------------------------------------
+# the last training features: camera optimization and the bilateral grid;
+# band frames; the multi-GPU step
+# ---------------------------------------------------------------------------
+
+EXTRAS_MODEL = dict(camera_optimizer_mode="SO3xR3", use_bilateral_grid=True)
+# the step without the extras, with each alone, with both
+EXTRAS_VARIANTS = {"none": None, "camera_opt": dict(camera_optimizer_mode="SO3xR3"),
+                   "bilateral_grid": dict(use_bilateral_grid=True), "both": EXTRAS_MODEL}
+EXTRAS_STEPS = 30  # rounds of EXTRAS_VARIANTS in turns; the first two are not timed
+# camera_opt's and bilateral_grid's Adam first moments between two extras
+# steps that should agree (card and CPU; kernels and the plain compositor),
+# relative L2: 70x the larger of the card-vs-CPU readings (1.4e-6, 7.1e-7;
+# PERF.md), well below an error the size of bf16's rounding
+EXTRAS_CHECK_RTOL = 1e-4
+EXTRAS_VERB_STEPS = 10
+EXTRAS_VERB_RANDOM = 20_000
+EXTRAS_VERB_CAPACITY = 1 << 16
+# (bands, tile) of the 480-row bench frame; (2, 32) is phase 23's (1, 2) mesh
+BAND_CASES = ((2, 16), (2, 32), (3, 32))
+PARALLEL_STEPS = 60
+PARALLEL_GLOO_MESHES = ((1, 2), (2, 1))  # (data, tile) of the two ranks on one card
+
+
+def _rel_l2(got, want) -> float:
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+@contextlib.contextmanager
+def plain_compositor():
+    """Within it, the pixel stage runs the tile compositor's plain versions,
+    forward and backward, in place of rows 1 and 2 (phase 19's swap of the
+    forward, with the backward's too)."""
+    from freegaussian_tpu_torch.ops import rasterize_cuda
+
+    real = rasterize_cuda.rasterize_tiles, rasterize_cuda.rasterize_tiles_bwd
+
+    def bwd(m2d, con, colors, opac, radii, gauss_ids, tile_offsets, livecnt, t_final, g_color, g_alpha, width, height, tile):
+        return rasterize_cuda.rasterize_tiles_bwd_plain(m2d, con, colors, opac, radii, gauss_ids, tile_offsets, g_color,
+                                                        g_alpha, width, height, tile)
+
+    rasterize_cuda.rasterize_tiles, rasterize_cuda.rasterize_tiles_bwd = rasterize_cuda.rasterize_tiles_plain, bwd
+    try:
+        yield
+    finally:
+        rasterize_cuda.rasterize_tiles, rasterize_cuda.rasterize_tiles_bwd = real
+
+
+def _first_moments(state) -> dict:
+    return {g: {k: v.detach().clone() for k, v in st.mu.items()} for g, st in state.opt_states.items()}
+
+
+def _hold_extras_step(label: str, got, want, card: str) -> dict:
+    """One extras step's (loss, first moments) against another's: the loss
+    within rtol 1e-4, camera_opt's and bilateral_grid's moments within
+    EXTRAS_CHECK_RTOL relative L2, every other tensor's within
+    TRAIN_CHECK_RTOL. Returns each group's worst tensor."""
+    (lg, mug), (lw, muw) = got, want
+    errs = {f"{g}.{k}": _rel_l2(mug[g][k].cpu(), w.cpu()) for g, moments in muw.items() for k, w in moments.items()}
+    worst = {g: max(v for k, v in errs.items() if k.startswith(g + ".")) for g in muw}
+    print(f"extras check {label}: loss {lg:.7f} vs {lw:.7f}; Adam first moment, relative L2 difference, worst tensor "
+          f"of each group: {json.dumps({g: float(f'{v:.3g}') for g, v in worst.items()})} ({card})")
+    if not {"camera_opt", "bilateral_grid"} <= set(worst):
+        raise AssertionError(f"extras check {label}: groups {sorted(worst)}")
+    if not abs(lg - lw) <= 1e-4 * abs(lw):
+        raise AssertionError(f"extras check {label}: loss {lg} vs {lw}")
+    for g, v in worst.items():
+        if v > (EXTRAS_CHECK_RTOL if g in ("camera_opt", "bilateral_grid") else TRAIN_CHECK_RTOL):
+            raise AssertionError(f"extras check {label}: the steps differ in group {g}: {v}")
+    return worst
+
+
+def phase_extras(tmp: Path, data: Path, model, card: str) -> dict:
+    """Camera optimization (SO3xR3) and the bilateral grid in the stage-1
+    step (`_hold_extras_step`'s budgets: loss rtol 1e-4, camera_opt's and
+    bilateral_grid's first moments within EXTRAS_CHECK_RTOL, every other
+    within TRAIN_CHECK_RTOL): one step on the card against the CPU (phase
+    7's check size, 4000 Gaussians at 160x120, the deform field in f32,
+    the same draws), and one step at the bench point with the kernels
+    against the same step with the plain compositor on the card
+    (`plain_compositor`; the CPU's would take minutes there). At the bench
+    point, EXTRAS_VARIANTS' steps in turns, EXTRAS_STEPS rounds (median ms
+    after two; launches of the steps with both, zeroed before each and
+    read after; each variant's cost over the step without the extras, the
+    median of the rounds' differences), which splits the extras' cost
+    between the camera and the grid; the grid's slice at 640x480 (forward, and forward + backward),
+    its total-variation loss and the camera adjustment with their
+    backwards (CUDA events). The `train` verb with both enabled by the
+    YAML overlay over phase 13's dataset (EXTRAS_VERB_STEPS steps from
+    EXTRAS_VERB_RANDOM random Gaussians), its checkpoint reloaded equal,
+    and `eval` over it. Launches are zeroed before each path and read
+    after."""
+    import dataclasses
+
+    import torch
+
+    from freegaussian_tpu_torch.engine import checkpoints
+    from freegaussian_tpu_torch.models.bilagrid import init_bilateral_grids, slice_bilateral_grid, total_variation_loss
+    from freegaussian_tpu_torch.models.camera_opt import apply_camera_opt, camera_opt_reg_loss
+    from freegaussian_tpu_torch.models.splat_model import SplatModel
+
+    n = min(4000, N_GAUSS)
+    small = SplatModel(dataclasses.replace(model.cfg, deform_bf16=False), n, device="cpu")
+    with torch.no_grad():
+        for k, v in model.params.items():
+            small.gauss_params[k].copy_(v[:n].cpu())
+        small.alive.copy_(model.alive[:n].cpu())
+        small.deform.load_state_dict({k: v.float().cpu() for k, v in model.deform.state_dict().items()})
+    g = torch.Generator().manual_seed(SEED + 72)
+    draws = {"background": torch.rand(3, generator=g), "split_eps": (torch.randn(n, 3, generator=g), torch.randn(n, 3, generator=g))}
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        state, step_fn, camera, camera0, batch = build_train_case(small, 160, 120, device=dev, flow_3d=False, extras=True)
+        state, m = step_fn(state, camera, batch, 3, camera0=camera0, draws=draws)
+        out[dev] = (float(m["loss"]), _first_moments(state))
+    check_cpu = _hold_extras_step("160x120 GPU vs CPU", out[DEVICE], out["cpu"], card)
+
+    width, height = SERVE_WH
+    draws = {"background": torch.rand(3, generator=torch.Generator().manual_seed(SEED + 78))}
+    out = {}
+    for label in ("kernels", "plain"):
+        state, step_fn, camera, camera0, batch = build_train_case(model, width, height, extras=True)
+        t0 = time.perf_counter()
+        with plain_compositor() if label == "plain" else contextlib.nullcontext():
+            state, m = step_fn(state, camera, batch, 3, camera0=camera0, draws=draws)
+            torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        out[label] = (float(m["loss"]), _first_moments(state))
+        del state
+    check_plain = _hold_extras_step(f"{width}x{height} tile 32, kernels vs the plain compositor on the card "
+                                    f"(the plain step {plain_s:.1f} s)", out["kernels"], out["plain"], card)
+    del out
+
+    cases = {name: build_train_case(model, width, height, extras=over or False) for name, over in EXTRAS_VARIANTS.items()}
+    states = {name: case[0] for name, case in cases.items()}
+    ms = {name: [] for name in cases}
+    step_launches = {k: 0 for k in launches()}
+    for _ in range(EXTRAS_STEPS):
+        for name, (_, step_fn, camera, camera0, batch) in cases.items():
+            torch.cuda.synchronize()
+            zero_launches()
+            t0 = time.perf_counter()
+            states[name], m = step_fn(states[name], camera, batch, 3, camera0=camera0)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            if name == "both":
+                for k, v in launches().items():
+                    step_launches[k] += v
+            if not np.isfinite(float(m["loss"])) or not bool(m["params_finite"]):
+                raise AssertionError(f"extras {name}: non-finite step, loss {float(m['loss'])}")
+    if step_launches != step_launch_counts(EXTRAS_STEPS):
+        raise AssertionError(f"extras steps: launches {step_launches}")
+    step_ms = {name: statistics.median(v[2:]) for name, v in ms.items()}
+    # each variant's cost: the median over rounds of its step minus that round's step without the extras
+    over = {name: statistics.median(a - b for a, b in zip(ms[name][2:], ms["none"][2:])) for name in ms if name != "none"}
+    state = states["both"]
+    grid = state.bilagrid.detach()
+    rgb = torch.rand(height, width, 3, generator=torch.Generator().manual_seed(SEED + 73)).to(DEVICE)
+    grid_g = grid.clone().requires_grad_(True)
+    cot = torch.randn(height, width, 3, generator=torch.Generator().manual_seed(SEED + 74)).to(DEVICE)
+    adjust = state.camera_opt.detach().clone().requires_grad_(True)
+    camera = cases["both"][2]
+    parts = {
+        "slice": cuda_ms(lambda: slice_bilateral_grid(grid, 0, rgb), reps=25),
+        "slice_fwd_bwd": cuda_ms(lambda: torch.autograd.grad((slice_bilateral_grid(grid_g, 0, rgb) * cot).sum(), grid_g), reps=25),
+        "tv_fwd_bwd": cuda_ms(lambda: torch.autograd.grad(total_variation_loss(grid_g), grid_g), reps=25),
+        "camera_fwd_bwd": cuda_ms(lambda: torch.autograd.grad(
+            apply_camera_opt(adjust, camera, 0).c2w.sum() + camera_opt_reg_loss(adjust), adjust), reps=25),
+    }
+    print(f"extras {width}x{height} tile 32: step ms (median of the last {EXTRAS_STEPS - 2} of {EXTRAS_STEPS}, variants in "
+          f"turns, synced host clock) {json.dumps({k: round(v, 3) for k, v in step_ms.items()})}; over none (median of the rounds' "
+          f"differences): camera_opt {over['camera_opt']:+.2f}, bilateral_grid {over['bilateral_grid']:+.2f}, "
+          f"both {over['both']:+.2f}; launches of the steps with both {json.dumps(step_launches)}; "
+          f"parts ms (CUDA events, median of 25) {json.dumps({k: round(v, 4) for k, v in parts.items()})} ({card})")
+    del cases, states, state
+
+    out_dir = tmp / "extras_out"
+    over = tmp / "extras_over.yaml"
+    over.write_text(
+        f"max_num_iterations: {EXTRAS_VERB_STEPS}\nnum_random: {EXTRAS_VERB_RANDOM}\nsteps_per_log: 1\n"
+        f"steps_per_save: 0\nsteps_per_eval_image: 0\nsteps_per_eval_all_images: 0\noutput_dir: {out_dir}\n"
+        "pipeline:\n  model:\n    warm_up: 0\n    num_downscales: 0\n    camera_optimizer_mode: SO3xR3\n"
+        "    use_bilateral_grid: true\n"
+    )
+    flags = ["--data", data, "--config", HERE / "configs/sim/base.yaml", "--scene-config", over,
+             "--capacity", EXTRAS_VERB_CAPACITY, "--device", DEVICE]
+    verb = _run_verb(["train", *flags])
+    trainer = verb["trainer"]
+    rows, _ = _verb_metrics(out_dir)
+    if len(rows) != EXTRAS_VERB_STEPS or not all(np.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"extras train verb: {len(rows)} logged steps")
+    st = trainer.state
+    if st.camera_opt is None or st.bilagrid is None or not float(st.camera_opt.detach().abs().max()) > 0:
+        raise AssertionError("extras train verb: the adjustments did not train")
+    ckpt = out_dir / "freegaussian" / "checkpoints"
+    saved = checkpoints.state_dict(st)
+    with torch.no_grad():
+        st.camera_opt.add_(1.0)
+        st.bilagrid.add_(1.0)
+    trainer.load(ckpt)
+    _assert_nested_equal(saved, checkpoints.state_dict(trainer.state), "extras checkpoint")
+    ev = _run_verb(["eval", *flags, "--load", ckpt])
+    if not torch.equal(ev["trainer"].state.camera_opt.cpu(), saved["camera_opt"]):
+        raise AssertionError("extras eval: the served adjustments are not the checkpoint's")
+    for label, run in (("train", verb), ("eval", ev)):
+        need = ("rasterize_fwd", "rasterize_bwd", "deform_fwd", "deform_bwd") if label == "train" else ("rasterize_fwd", "deform_fwd")
+        if not all(run["launches"][k] > 0 for k in need):
+            raise AssertionError(f"extras {label} verb: launches {run['launches']}")
+    print(f"extras train verb: {EXTRAS_VERB_STEPS} steps, loss {rows[0]['loss']:.6f} -> {rows[-1]['loss']:.6f}, setup "
+          f"{verb['setup_s']:.1f} s, work {verb['work_s']:.2f} s; |camera_opt| max {float(saved['camera_opt'].abs().max()):.3g}, "
+          f"grid moved {float((saved['bilagrid'] - init_bilateral_grids(len(saved['bilagrid']), device='cpu')).abs().max()):.3g}; "
+          "checkpoint reloads equal; "
+          f"eval setup {ev['setup_s']:.1f} s, work {ev['work_s']:.2f} s; launches train {json.dumps(verb['launches'])}, "
+          f"eval {json.dumps(ev['launches'])}")
+    total = {k: step_launches[k] + verb["launches"][k] + ev["launches"][k] for k in step_launches}
+    return {"launches": total, "step_ms": step_ms, "over": over, "parts": parts, "check_cpu": check_cpu,
+            "check_plain": check_plain}
+
+
+def phase_bands(model, card: str) -> dict:
+    """The bench frame (640x480) rendered in horizontal bands (rows 1 and 2
+    on band frames: the pixel stage of `rasterization` with
+    `tile_origin_y`), at each of BAND_CASES: band heights that are
+    multiples of the tile size, and 2 bands of 240 rows at tile 32, which
+    `make_parallel_train_step` renders at (data 1, tile 2) (phase 23): its
+    last tile row is partial, and its tile grid is not the frame's. Each
+    band's kernels against their plain versions on the band's own inputs
+    (the bench scene shifted by the band's origin) with phase 4's budgets:
+    the forward at C = 3 and 5 (`_check_forward`), the reverse-walk
+    backward at C = 5, the training layout (`_check_backward`). Through
+    `rasterize_pixels` (C = 3, seeded cotangents), stitched, against the
+    full frame: the forward within KERNEL_ATOL; the per-Gaussian gradients
+    (means2d, conics, colors, opacities, absgrad) summed over the bands, at
+    most BWD_MAX_OUTSIDE of their elements outside rtol BWD_RTOL / atol
+    BWD_ATOL. Where a band's tile grid is the frame's, also the backward
+    kernel's rows of each band, absgrad included, against the frame's rows
+    of the same (tile, Gaussian) pairs (the same ids in the same order) at
+    the same budget, and the bands' intersections summing to the frame's.
+    Where it is not, the absgrad (a sum over each kernel tile of |the
+    tile's d means2d|) differs from the frame's by definition and is only
+    reported. Each band's launches (zeroed before its forward and backward,
+    read after) and its kernels' ms."""
+    import torch
+
+    from freegaussian_tpu_torch.ops.rasterize_cuda import rasterize_pixels, rasterize_tiles, rasterize_tiles_bwd
+    from freegaussian_tpu_torch.ops.tiles import build_intersections
+
+    width, height = SERVE_WH
+    inputs, _ = pixel_stage_inputs(model, bench_camera(width, height, DEVICE))
+    m2d, con, chans, opac, depths, radii = inputs
+    colors = chans[:, :3].contiguous()
+    g = torch.Generator(device="cpu").manual_seed(SEED + 75)
+    g_color = torch.randn(height, width, 3, generator=g).to(DEVICE)
+    g_alpha = torch.randn(height, width, 1, generator=g).to(DEVICE)
+    names = ("means2d", "conics", "colors", "opacities", "absgrad")
+
+    def shift(origin):
+        return m2d - m2d.new_tensor([0.0, float(origin)])
+
+    def render(origin, rows, tile):
+        leaves = [t.clone().requires_grad_(True) for t in (m2d, con, colors, opac)]
+        sink = torch.zeros_like(m2d, requires_grad=True)
+        shifted = leaves[0] - leaves[0].new_tensor([0.0, float(origin)]) if origin else leaves[0]
+        color, alpha, n_isects = rasterize_pixels(shifted, leaves[1], leaves[2], leaves[3], depths, radii, width, rows,
+                                                  tile_size=tile, means2d_sink=sink)
+        ((color * g_color[origin:origin + rows]).sum() + (alpha * g_alpha[origin:origin + rows]).sum()).backward()
+        return torch.cat([color, alpha], -1).detach(), [t.grad for t in leaves] + [sink.grad], n_isects
+
+    def kernel_rows(origin, rows, tile):
+        """The band's binning, the kernels' forward and backward arguments, its backward rows."""
+        shifted = shift(origin)
+        isect = build_intersections(shifted, radii, depths, width, rows, tile)
+        fwd_args = (shifted, con, colors, opac, radii, isect.gauss_ids, isect.tile_offsets)
+        _, _, livecnt, t_final = rasterize_tiles(*fwd_args, width, rows, tile)
+        gc, ga = g_color[origin:origin + rows].contiguous(), g_alpha[origin:origin + rows, :, 0].contiguous()
+        bwd_args = (*fwd_args, livecnt, t_final, gc, ga, width, rows, tile)
+        return isect, fwd_args, bwd_args, rasterize_tiles_bwd(*bwd_args)
+
+    def outside(got, want):
+        return int(((got - want).abs() > BWD_ATOL + BWD_RTOL * want.abs()).sum())
+
+    out = {"rows": [], "plain": []}
+    for n_bands, tile in BAND_CASES:
+        rows = height // n_bands
+        aligned = rows % tile == 0
+        full, full_grads, full_isects = render(0, height, tile)
+        f_isect, _, _, f_rows = kernel_rows(0, height, tile)
+        band_tiles = (rows // tile) * f_isect.tiles_w
+        parts, rows_outside, rows_elements = [], 0, 0
+        for b in range(n_bands):
+            origin = b * rows
+            band_inputs = (shift(origin), con, chans, opac, depths, radii)
+            label = f"band {b} of {n_bands} at tile {tile}"
+            fwd_rows, _ = _check_forward(band_inputs, width, rows, (tile,), (3, 5), frame=label, timed=False)
+            bwd_rows = _check_backward(*band_inputs, width, rows, None, frame=label, tiles=(tile,), channels=(5,))
+            out["plain"] += fwd_rows + bwd_rows
+            torch.cuda.synchronize()
+            zero_launches()
+            img, grads, n_isects = render(origin, rows, tile)
+            torch.cuda.synchronize()
+            counts = launches()
+            if counts["rasterize_fwd"] != 1 or counts["rasterize_bwd"] != 1:
+                raise AssertionError(f"{label}: launches {counts}")
+            isect, fwd_args, bwd_args, b_rows = kernel_rows(origin, rows, tile)
+            band = dict(bands=n_bands, band=b, tile=tile, rows=rows, aligned=aligned, num_isects=n_isects, launches=counts,
+                        fwd_ms=cuda_ms(lambda: rasterize_tiles(*fwd_args, width, rows, tile), reps=25),
+                        bwd_ms=cuda_ms(lambda: rasterize_tiles_bwd(*bwd_args), reps=25))
+            if aligned:
+                lo, hi = int(f_isect.tile_offsets[b * band_tiles]), int(f_isect.tile_offsets[(b + 1) * band_tiles])
+                if not (torch.equal(isect.gauss_ids, f_isect.gauss_ids[lo:hi])
+                        and torch.equal(isect.tile_ids + b * band_tiles, f_isect.tile_ids[lo:hi])):
+                    raise AssertionError(f"{label}: its (tile, Gaussian) pairs are not the frame's")
+                band_out = outside(b_rows, f_rows[lo:hi])
+                rows_outside += band_out
+                rows_elements += b_rows.numel()
+                band.update(kernel_rows_outside_budget=band_out,
+                            kernel_rows_max_abs_err=float((b_rows - f_rows[lo:hi]).abs().max()))
+            print("bands " + json.dumps(band))
+            parts.append((img, grads, n_isects))
+        stitched = torch.cat([p[0] for p in parts])
+        fwd_err = float((stitched - full).abs().max())
+        summed = [sum(p[1][i] for p in parts) for i in range(len(names))]
+        held = names if aligned else names[:4]
+        grads_out = {k: outside(s_, w) for k, s_, w in zip(names, summed, full_grads)}
+        elements = sum(w.numel() for k, w in zip(names, full_grads) if k in held)
+        band_isects = sum(p[2] for p in parts)
+        row = dict(bands=n_bands, tile=tile, aligned=aligned, fwd_max_abs_err=fwd_err, grads_outside_budget=grads_out,
+                   grad_elements_held=elements, held=list(held),
+                   max_abs_grad_err={k: float((s_ - w).abs().max()) for k, s_, w in zip(names, summed, full_grads)},
+                   absgrad_per_gaussian_rel_l2=_rel_l2(summed[4], full_grads[4]), kernel_rows_outside_budget=rows_outside,
+                   kernel_row_elements=rows_elements, num_isects_bands=band_isects, num_isects_frame=full_isects)
+        print(f"bands stitched ({card}) " + json.dumps(row))
+        if fwd_err > KERNEL_ATOL:
+            raise AssertionError(f"{n_bands} bands at tile {tile}: stitched frame off the full frame by {fwd_err}")
+        if sum(grads_out[k] for k in held) > BWD_MAX_OUTSIDE * elements or rows_outside > BWD_MAX_OUTSIDE * rows_elements:
+            raise AssertionError(f"{n_bands} bands at tile {tile}: gradients outside the budget {grads_out} of {elements}, "
+                                 f"kernel rows {rows_outside} of {rows_elements}")
+        if aligned and band_isects != full_isects:
+            raise AssertionError(f"{n_bands} bands at tile {tile}: {band_isects} intersections, the frame {full_isects}")
+        out["rows"].append(row)
+    return out
+
+
+def _same_on_ranks(t) -> bool:
+    """Whether `t` is bit-equal on every rank (its elementwise max and min agree)."""
+    import torch
+    import torch.distributed as dist
+
+    hi, lo = (t.detach().clone(memory_format=torch.contiguous_format) for _ in range(2))
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return bool((hi == lo).all())
+
+
+def _gloo_rank(rank: int, port: int, mesh_shape, ckpt: str, queue):
+    """One of two ranks of a (data, tile) mesh on this one card, over gloo
+    with CUDA tensors (spawned by phase_parallel): the bench scene from the
+    phase 3 checkpoint, phase 7's case, one parallel step (data 2: the
+    second rank's camera at t = 0.45), its launches, the ranks' parameters
+    compared; rank 0 also takes the single step of each camera from the
+    same state and draws."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from freegaussian_tpu_torch.models.torch_compat import load_reference_checkpoint
+    from freegaussian_tpu_torch.parallel.sharding import make_mesh, make_parallel_train_step, replicate_state, stack_cameras
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=rank)
+    try:
+        data, tile = mesh_shape
+        mesh = make_mesh(data, tile)
+        model = load_reference_checkpoint(Path(ckpt), device=DEVICE)
+        width, height = SERVE_WH
+        cfg, optimizers, densify_cfg = train_case_config(model)
+        state, _, camera, camera0, batch = build_train_case(model, width, height)
+        state = replicate_state(state, mesh)
+        cams = [camera, dataclasses.replace(camera, time=torch.full_like(camera.time, 0.45))][:data]
+        rep = lambda t: t[None].expand(data, *t.shape).contiguous()
+        step = make_parallel_train_step(cfg, densify_cfg, optimizers, 0, mesh, (height, width), with_flow=True)
+        draws = {"background": torch.rand(3, generator=torch.Generator().manual_seed(SEED + 77))}
+        start = {k: v.detach().clone() for k, v in state.params.items()}
+        torch.cuda.synchronize()
+        zero_launches()
+        state, m = step(state, stack_cameras(cams), rep(batch["image"]), stack_cameras([camera0] * data), rep(batch["flow"]),
+                        rep(batch["depth0"]), sh_degree_now=3, draws=draws)
+        torch.cuda.synchronize()
+        result = {"rank": rank, "loss": float(m["loss"]), "launches": launches(),
+                  "equal": all(_same_on_ranks(v) for v in state.params.values())}
+        if rank == 0:
+            singles = []
+            for cam in cams:
+                st, step_s, _, _, b = build_train_case(model, width, height)
+                st, ms = step_s(st, cam, b, 3, camera0=camera0, draws=draws)
+                singles.append((float(ms["loss"]), st))
+            # a group's first moment (its gradient) as one vector: the deform
+            # field's small timenet gradients are sums over every Gaussian
+            # with heavy cancellation, which shards and bands reorder
+            flat = lambda st_: torch.cat([v.reshape(-1) for _, v in sorted(st_.mu.items())])
+            mu = {g: _rel_l2(flat(st_), sum(flat(s_.opt_states[g]) for _, s_ in singles) / data)
+                  for g, st_ in state.opt_states.items()}
+            per_tensor = {f"{g}.{k}": _rel_l2(st_.mu[k], sum(s_.opt_states[g].mu[k] for _, s_ in singles) / data)
+                          for g, st_ in state.opt_states.items() for k in st_.mu}
+            result.update(single_loss=sum(l for l, _ in singles) / data, mu_worst=max(mu.values()),
+                          mu_worst_at=max(mu, key=mu.get), mu_worst_tensor=max(per_tensor.values()),
+                          mu_worst_tensor_at=max(per_tensor, key=per_tensor.get))
+            if data == 1:
+                single = singles[0][1]
+                result["updates"] = {k: _rel_l2(state.params[k].detach() - start[k], single.params[k].detach() - start[k])
+                                     for k in start}
+        queue.put(result)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(model, ckpt: Path) -> dict:
+    """`make_parallel_train_step` at (data 1, tile 1) over NCCL, world size 1
+    on this card (the process group set up here on a free localhost port),
+    against the single-GPU step from the same state with the same draws, at
+    the bench point (phase 7's case, flow losses on): after one step the
+    loss within rtol 1e-4, every Adam first moment and every group's update
+    (new parameters minus old) within TRAIN_CHECK_RTOL relative L2. Then
+    PARALLEL_STEPS more steps of each, in turns (each first in every other
+    round): median ms after two, the median of the paired differences, and
+    the parallel steps' launches (zeroed just before them, read just after). Then two
+    ranks on this card over gloo (`_gloo_rank`), at each of
+    PARALLEL_GLOO_MESHES: one step's loss within rtol 1e-4 of the single
+    steps' mean (data 2: one camera each), each group's Adam first moment
+    (all its tensors as one vector) within TRAIN_CHECK_RTOL relative L2 of
+    the mean of theirs, the ranks' parameters bit-equal, one step's launches
+    on each rank; the worst single tensor and the updates are reported."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from freegaussian_tpu_torch.parallel.distributed import ensure_distributed
+    from freegaussian_tpu_torch.parallel.sharding import make_mesh, make_parallel_train_step, replicate_state, stack_cameras
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    if ensure_distributed(f"tcp://127.0.0.1:{port}", 1, 0, device=DEVICE) != (0, 1):
+        raise AssertionError("parallel: the process group is not rank 0 of 1")
+    try:
+        mesh = make_mesh(1, 1)
+        width, height = SERVE_WH
+        cfg, optimizers, densify_cfg = train_case_config(model)
+        single = build_train_case(model, width, height)
+        par = build_train_case(model, width, height)
+        par_step = make_parallel_train_step(cfg, densify_cfg, optimizers, 0, mesh, (height, width), with_flow=True)
+        state_s, step_s, camera, camera0, batch = single
+        state_p = replicate_state(par[0], mesh)
+        cams, cams0 = stack_cameras([camera]), stack_cameras([camera0])
+        imgs, flows, depth0s = batch["image"][None], batch["flow"][None], batch["depth0"][None]
+        g = torch.Generator().manual_seed(SEED + 76)
+        draws = {"background": torch.rand(3, generator=g)}
+        start = {k: v.detach().clone() for k, v in state_s.params.items()}
+        state_s, ms_ = step_s(state_s, camera, batch, 3, camera0=camera0, draws=draws)
+        state_p, mp_ = par_step(state_p, cams, imgs, cams0, flows, depth0s, sh_degree_now=3, draws=draws)
+        ls, lp = float(ms_["loss"]), float(mp_["loss"])
+        mu = {f"{gname}.{k}": _rel_l2(state_p.opt_states[gname].mu[k], v)
+              for gname, st in state_s.opt_states.items() for k, v in st.mu.items()}
+        upd = {k: _rel_l2(state_p.params[k].detach() - start[k], state_s.params[k].detach() - start[k]) for k in start}
+        print(f"parallel (1, 1) NCCL vs the single step, one step at {width}x{height}: loss {lp:.7f} vs {ls:.7f}; "
+              f"worst Adam first moment relative L2 {max(mu.values()):.3g} ({max(mu, key=mu.get)}); updates "
+              f"{json.dumps({k: float(f'{v:.3g}') for k, v in upd.items()})}")
+        if not abs(lp - ls) <= 1e-4 * abs(ls):
+            raise AssertionError(f"parallel step loss {lp} vs single {ls}")
+        for k, v in list(mu.items()) + list(upd.items()):
+            if v > TRAIN_CHECK_RTOL:
+                raise AssertionError(f"parallel step differs from the single step in {k}: {v}")
+        ms = {"single": [], "parallel": []}
+        counts = {k: 0 for k in launches()}
+        for i in range(PARALLEL_STEPS):
+            # the two in turns, each first in every other round
+            for which in ("single", "parallel")[:: 1 if i % 2 == 0 else -1]:
+                torch.cuda.synchronize()
+                zero_launches()
+                t0 = time.perf_counter()
+                if which == "single":
+                    state_s, m = step_s(state_s, camera, batch, 3, camera0=camera0)
+                else:
+                    state_p, m = par_step(state_p, cams, imgs, cams0, flows, depth0s, sh_degree_now=3)
+                torch.cuda.synchronize()
+                ms[which].append((time.perf_counter() - t0) * 1e3)
+                if which == "parallel":
+                    for k, v in launches().items():
+                        counts[k] += v
+                if not np.isfinite(float(m["loss"])):
+                    raise AssertionError(f"{which} step: non-finite loss")
+        if counts != step_launch_counts(PARALLEL_STEPS):
+            raise AssertionError(f"parallel steps: launches {counts}")
+        med = {k: statistics.median(v[2:]) for k, v in ms.items()}
+        paired = statistics.median(p - s_ for p, s_ in zip(ms["parallel"][2:], ms["single"][2:]))
+        print(f"parallel (1, 1) step {med['parallel']:.2f} ms against the single step's {med['single']:.2f} ms "
+              f"(medians of the last {PARALLEL_STEPS - 2} of {PARALLEL_STEPS}, in turns, synced host clock; median of "
+              f"the paired differences {paired:+.2f} ms; quartiles parallel "
+              f"{[round(q, 2) for q in statistics.quantiles(ms['parallel'][2:], n=4)]}, single "
+              f"{[round(q, 2) for q in statistics.quantiles(ms['single'][2:], n=4)]}); launches {json.dumps(counts)}")
+        med["paired_diff"] = paired
+    finally:
+        dist.destroy_process_group()
+
+    # two ranks on this card over gloo, which takes CUDA tensors for every
+    # collective the step uses (PERF.md §7)
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    for mesh_shape in PARALLEL_GLOO_MESHES:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        queue = ctx.Queue()
+        procs = [ctx.Process(target=_gloo_rank, args=(r, port, mesh_shape, str(ckpt), queue)) for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            results = sorted((queue.get(timeout=300) for _ in procs), key=lambda r: r["rank"])
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"parallel {mesh_shape} over gloo: exit codes {[p.exitcode for p in procs]}")
+        r0 = results[0]
+        print(f"parallel {mesh_shape} gloo, 2 ranks on this card: loss {r0['loss']:.7f} vs the single steps' "
+              f"{r0['single_loss']:.7f}; worst group's Adam first moment relative L2 {r0['mu_worst']:.3g} ({r0['mu_worst_at']}; "
+              f"worst tensor {r0['mu_worst_tensor']:.3g}, {r0['mu_worst_tensor_at']}); "
+              f"updates {json.dumps({k: float(f'{v:.3g}') for k, v in r0.get('updates', {}).items()})}; ranks' "
+              f"parameters bit-equal {all(r['equal'] for r in results)}; launches {json.dumps([r['launches'] for r in results])}")
+        if not abs(r0["loss"] - r0["single_loss"]) <= 1e-4 * abs(r0["single_loss"]) or r0["mu_worst"] > TRAIN_CHECK_RTOL:
+            raise AssertionError(f"parallel {mesh_shape} over gloo differs from the single steps: {r0}")
+        if not all(r["equal"] for r in results) or results[1]["loss"] != r0["loss"]:
+            raise AssertionError(f"parallel {mesh_shape} over gloo: the ranks disagree")
+        for r in results:
+            if r["launches"] != step_launch_counts(1):
+                raise AssertionError(f"parallel {mesh_shape} rank {r['rank']}: launches {r['launches']}")
+            for k, v in r["launches"].items():
+                counts[k] += v
+    return {"launches": counts, "ms": med}
+
+
 def trunk_bound(n: int, in_ch: int, save: bool, backward: bool):
     """Least time (ms) the card could take for one call of the trunk on a
     precomputed embedding, and what sets it: `field_bound`'s operations
@@ -2779,6 +3396,14 @@ def main():
         pipeline = phase_pipeline(Path(tmp), data, verb, model, card)
         del verb["trainer"], control_verb["trainer"]
         captures = phase_captures(Path(tmp), model, train["median_step_ms"], card)
+        t_new = time.perf_counter()
+        extras = phase_extras(Path(tmp), data, model, card)
+        t_extras = time.perf_counter()
+        phase_bands(model, card)
+        t_bands = time.perf_counter()
+        parallel = phase_parallel(model, ckpt)
+        print(f"phases 21-23: extras {t_extras - t_new:.1f} s, bands {t_bands - t_extras:.1f} s, "
+              f"parallel {time.perf_counter() - t_bands:.1f} s")
     print(
         f"train verb median step {verb['median_step_ms']:.2f} ms against phase 7's bare step "
         f"{train['median_step_ms']:.2f} ms in this run ({verb['median_step_ms'] / train['median_step_ms']:.2f}x); "
@@ -2819,8 +3444,9 @@ def main():
         records.append(record(name, "deform_field.cu", f"freegaussian_tpu/ops/mlp_pallas.py:{line}",
                               trunk["launches"][name], trunk[mode]["max_abs_err"], trunk[mode]))
     assert [r["name"] for r in records] == list(launches())
-    for r in records:  # phase 19's verbs (rows 1, 6 and 8, the 5 control steps' backwards); phase 20's (rows 1, 2, 8, 9)
-        r["launches"] += pipeline["launches"][r["name"]] + captures["launches"][r["name"]]
+    # phase 19's verbs (rows 1, 6 and 8, the 5 control steps' backwards); phases 20, 21 and 23's (rows 1, 2, 8, 9)
+    for r in records:
+        r["launches"] += sum(run["launches"][r["name"]] for run in (pipeline, captures, extras, parallel))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(

@@ -3,7 +3,8 @@
 The JAX package writes orbax step directories; the port writes
 `<directory>/<step>/state.pt` with `torch.save` and reads it back with
 `torch.load(weights_only=True)`: the Gaussian parameters and alive mask,
-the deform and control fields, every Adam group (count, mu, nu), the
+the deform and control fields, the camera adjustments and bilateral grids
+when the state trains them, every Adam group (count, mu, nu), the
 densification statistics, the step and the random generator's state.
 Re-saving a step overwrites it, as the JAX package's does. Orbax
 checkpoints are not read; `models/torch_compat.py` bridges JAX states and
@@ -22,6 +23,7 @@ from ..models.densify import DensifyState
 from .optimizers import AdamState
 
 _FILE = "state.pt"
+_EXTRAS = ("camera_opt", "bilagrid")  # stage-1 tensors trained only when enabled
 
 
 def _cpu(t: torch.Tensor) -> torch.Tensor:
@@ -35,6 +37,7 @@ def state_dict(state) -> Dict[str, Any]:
         "alive": _cpu(state.alive),
         "deform": {k: _cpu(v) for k, v in state.deform.state_dict().items()} if state.deform is not None else None,
         "control": {k: _cpu(v) for k, v in state.control.state_dict().items()} if state.control is not None else None,
+        **{k: _cpu(getattr(state, k)) if getattr(state, k) is not None else None for k in _EXTRAS},
         "opt_states": {
             g: {"count": int(s.count), "mu": {k: _cpu(v) for k, v in s.mu.items()}, "nu": {k: _cpu(v) for k, v in s.nu.items()}}
             for g, s in state.opt_states.items()
@@ -92,6 +95,14 @@ def load_checkpoint(directory: Path, state, step: Optional[int] = None):
             raise KeyError(f"checkpoint and state disagree on the {name} field")
         if field is not None:
             field.load_state_dict(saved[name], strict=True)
+    for name in _EXTRAS:
+        have, got = getattr(state, name), saved.get(name)  # checkpoints written before the extras lack the keys
+        if (have is None) != (got is None):
+            raise KeyError(f"checkpoint and state disagree on {name} (enable it in both configs or in neither)")
+        if have is not None:
+            if have.shape != got.shape:
+                raise ValueError(f"{name}: checkpoint shape {tuple(got.shape)}, state {tuple(have.shape)}")
+            setattr(state, name, got.to(dev).requires_grad_(True))
     if set(saved["opt_states"]) != set(state.opt_states):
         raise KeyError(f"checkpoint optimizer groups {sorted(saved['opt_states'])}, state {sorted(state.opt_states)}")
     for g, s in saved["opt_states"].items():

@@ -24,6 +24,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..data.cameras import Camera
+from ..models.bilagrid import total_variation_loss
+from ..models.camera_opt import apply_camera_opt, camera_opt_reg_loss
 from ..models.densify import DensifyConfig, DensifyState, refine, update_stats, zero_moment_rows
 from ..models.fields import ControlField, DeformField
 from ..models.gaussians import GaussianParams
@@ -44,17 +46,28 @@ class TrainState:
     step: int
     generator: torch.Generator
     control: Optional[ControlField] = None  # stage 2
+    camera_opt: Optional[torch.Tensor] = None  # (num_cameras, 6) SO3xR3 tangents when enabled
+    bilagrid: Optional[torch.Tensor] = None  # (num_images, W, Y, X, 12) grids when enabled
 
 
 def params_by_group(
-    params: GaussianParams, deform: Optional[DeformField], control: Optional[ControlField] = None
+    params: GaussianParams,
+    deform: Optional[DeformField],
+    control: Optional[ControlField] = None,
+    *,
+    camera_opt: Optional[torch.Tensor] = None,
+    bilagrid: Optional[torch.Tensor] = None,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """The optimizer groups: one per Gaussian attribute, plus "deform" and
-    "control" with each field's weights by state_dict name."""
+    "control" with each field's weights by state_dict name, and
+    "camera_opt" / "bilateral_grid" when those tensors are given."""
     groups = {k: {k: params[k]} for k in GAUSSIAN_GROUPS}
     for name, field in (("deform", deform), ("control", control)):
         if field is not None:
             groups[name] = dict(field.named_parameters())
+    for name, t in (("camera_opt", camera_opt), ("bilateral_grid", bilagrid)):
+        if t is not None:
+            groups[name] = {name: t}
     return groups
 
 
@@ -67,11 +80,21 @@ def create_train_state(
     generator: torch.Generator,
     step: int = 0,
     control: Optional[ControlField] = None,
+    camera_opt: Optional[torch.Tensor] = None,
+    bilagrid: Optional[torch.Tensor] = None,
 ) -> TrainState:
     """A fresh state: zero Adam moments and densification statistics. With
-    `control` (stage 2) the deform field is frozen: it gets no Adam group."""
+    `control` (stage 2) the deform field is frozen: it gets no Adam group.
+    `camera_opt` and `bilagrid` (stage 1) get their groups."""
     params = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
-    groups = params_by_group(params, None, control) if control is not None else params_by_group(params, deform)
+    extras = {
+        k: v.detach().clone().requires_grad_(True) if v is not None else None
+        for k, v in (("camera_opt", camera_opt), ("bilagrid", bilagrid))
+    }
+    if control is not None:
+        groups = params_by_group(params, None, control)
+    else:
+        groups = params_by_group(params, deform, **extras)
     return TrainState(
         params=params,
         alive=alive.clone(),
@@ -81,6 +104,7 @@ def create_train_state(
         step=step,
         generator=generator,
         control=control,
+        **extras,
     )
 
 
@@ -106,12 +130,14 @@ def make_train_step(
     train_camera_opt: bool = False,
 ):
     """Build the step. Returns step_fn(state, camera, batch, sh_degree_now,
-    camera0=None, draws=None) -> (state, metrics). Camera optimization and
-    the bilateral grid are not ported yet and raise."""
-    if train_camera_opt or splat_cfg.camera_optimizer_mode != "off":
-        raise NotImplementedError("camera optimization is not ported yet (camera_optimizer_mode must be 'off')")
-    if splat_cfg.use_bilateral_grid:
-        raise NotImplementedError("the bilateral grid is not ported yet (use_bilateral_grid must be False)")
+    camera0=None, draws=None, cam_idx=0) -> (state, metrics). With camera
+    optimization (`train_camera_opt` or a `camera_optimizer_mode` other than
+    "off") the state's `camera_opt` row `cam_idx` adjusts the camera before
+    the forward; with `use_bilateral_grid` the state's grid `cam_idx`
+    corrects the rendered image. Each adds its regularizer to the loss and
+    its Adam group, and is skipped when the state does not carry it."""
+    train_camera_opt = train_camera_opt or splat_cfg.camera_optimizer_mode != "off"
+    use_bilagrid = splat_cfg.use_bilateral_grid
     use_flow = splat_cfg.flow_loss_weight > 0 or splat_cfg.flow_3d_loss_weight > 0
 
     def step_fn(
@@ -121,6 +147,7 @@ def make_train_step(
         sh_degree_now: int,
         camera0: Optional[Camera] = None,
         draws: Optional[Dict[str, Any]] = None,
+        cam_idx: int = 0,
     ):
         draws = draws or {}
         params, alive = state.params, state.alive
@@ -130,15 +157,19 @@ def make_train_step(
         last_size = (camera.height, camera.width)
         flow_active = use_flow and camera0 is not None and "flow" in batch
         deform = state.deform if train_deform else None
+        cam_adjust = state.camera_opt if train_camera_opt else None
+        grids = state.bilagrid if use_bilagrid else None
 
         bg = draw_background(splat_cfg, dev, state.generator, draws)
         sink = torch.zeros((capacity, 2), device=dev, requires_grad=True)
         outputs = forward(
-            splat_cfg, params, alive, camera,
+            splat_cfg, params, alive,
+            apply_camera_opt(cam_adjust, camera, cam_idx) if cam_adjust is not None else camera,
             deform=deform, sh_degree_now=sh_degree_now, warmed_up=warmed_up, train=True,
             background=bg, means2d_sink=sink,
             camera0=camera0 if flow_active else None,
             render_flow=flow_active and splat_cfg.flow_loss_weight > 0,
+            bilagrid=grids, image_idx=cam_idx,
         )
         losses = loss_fn(splat_cfg, outputs, batch, params, alive, apply_scale_reg=(state.step % 10 == 0))
         total = losses["main_loss"] + losses["scale_reg"]
@@ -162,8 +193,12 @@ def make_train_step(
                 fl3 = flow_supervision_loss(outputs["means_prev"], lifted, outputs["radii"], alive=alive)
                 losses["flow_3d"] = fl3
                 total = total + gate * splat_cfg.flow_3d_loss_weight * fl3
+        if cam_adjust is not None:
+            total = total + camera_opt_reg_loss(cam_adjust)
+        if grids is not None:
+            total = total + 10.0 * total_variation_loss(grids)  # the reference's weight (freegaussian_model.py:989)
 
-        groups = params_by_group(params, deform)
+        groups = params_by_group(params, deform, camera_opt=cam_adjust, bilagrid=grids)
         names = [(g, k) for g, ps in groups.items() for k in ps]
         leaves = [groups[g][k] for g, k in names]
         grads = torch.autograd.grad(total, leaves + [sink], allow_unused=True)

@@ -27,6 +27,8 @@ import torch
 from ..data.cameras import Camera
 from ..data.datamanager import FullImageDatamanager
 from ..data.dataparsers import PARSERS, ParsedDataset
+from ..models.bilagrid import init_bilateral_grids
+from ..models.camera_opt import init_camera_opt
 from ..models.densify import DensifyConfig
 from ..models.gaussians import init_gaussians
 from ..models.splat_model import SplatConfig, forward, make_control_field, make_deform_field, psnr, sh_degree_to_use
@@ -117,8 +119,17 @@ class Trainer:
         )
         deform = make_deform_field(config.splat).reset_parameters(init_gen, config.splat.deform_head_init_scale)
         self.control = make_control_field(config.splat).reset_parameters(init_gen).to(dev)
+        # SO3xR3 adjustments and bilateral grids, one per training image, when enabled
+        camera_opt = bilagrid = None
+        if config.splat.camera_optimizer_mode != "off":
+            camera_opt = init_camera_opt(len(self.datamanager), device=dev)
+        if config.splat.use_bilateral_grid:
+            bilagrid = init_bilateral_grids(len(self.datamanager), device=dev)
         self.optimizers = make_optimizers(config.optimizers)
-        self.state = create_train_state(params, alive, deform.to(dev), self.optimizers, generator=self.generator)
+        self.state = create_train_state(
+            params, alive, deform.to(dev), self.optimizers, generator=self.generator,
+            camera_opt=camera_opt, bilagrid=bilagrid,
+        )
         self._rebuild_step_fn()
 
         self.out_dir = Path(config.output_dir) / config.experiment_name
@@ -229,7 +240,7 @@ class Trainer:
                     batch["depth0_valid"] = torch.tensor(0.0, device=dev)
                 else:
                     batch["depth0_valid"] = torch.tensor(1.0, device=dev)
-        return self.step_fn(self.state, camera, batch, sh_degree_to_use(cfg.splat, i), camera0=camera0)
+        return self.step_fn(self.state, camera, batch, sh_degree_to_use(cfg.splat, i), camera0=camera0, cam_idx=idx)
 
     def _maybe_start_viewer(self) -> None:
         if "viewer" in self.config.vis and self._viewer is None:

@@ -32,6 +32,7 @@ from ..data.cameras import Camera
 from ..ops.math import num_sh_bases, safe_norm
 from ..ops.projection import project_gaussians
 from ..ops.rasterize import rasterization
+from .bilagrid import slice_bilateral_grid
 from .fields import ControlField, DeformField, apply_se3_deform
 from .gaussians import PARAM_NAMES, GaussianParams, colors_from_features
 from .ssim import ssim
@@ -147,21 +148,54 @@ def forward(
     means2d_sink: Optional[torch.Tensor] = None,
     camera0: Optional[Camera] = None,
     render_flow: bool = False,
+    bilagrid: Optional[torch.Tensor] = None,
+    image_idx: int = 0,
+    primitive_shard_axis=None,
+    band_origin_y: int = 0,
+    band_height: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render one camera. Returns rgb (H, W, 3), accumulation (H, W, 1),
     background, radii, means2d, depths, num_isects, and as they apply depth
-    (H, W, 1), flow (H, W, 2) and means_prev (N, 3)."""
+    (H, W, 1), flow (H, W, 2) and means_prev (N, 3). With `bilagrid` (in
+    training only) grid `image_idx` corrects the composited rgb.
+
+    The multi-GPU step's arguments: `primitive_shard_axis`, a process
+    group of ng ranks, runs the per-Gaussian stage (deform field,
+    projection, SH) on this rank's 1/ng slice of the capacity and gathers
+    the render attributes over the group into the pixel stage (gradients
+    reduce back to the shard); the full-capacity outputs (radii, means2d,
+    depths, means_prev) come back gathered. `band_origin_y` and
+    `band_height` render rows [origin, origin + band_height) of the
+    camera's frame."""
     with contextlib.nullcontext() if train else torch.no_grad():
-        return _forward(
+        out = _forward(
             cfg, params, alive, camera, deform, step, sh_degree_now, warmed_up, train,
             render_mode, background, means2d_sink, camera0, render_flow,
+            primitive_shard_axis, band_origin_y, band_height,
         )
+        if bilagrid is not None and train:
+            # per-image appearance correction after the background and the clip (ref :879-882)
+            out["rgb"] = slice_bilateral_grid(bilagrid, image_idx, out["rgb"])
+        return out
 
 
 def _forward(
     cfg, params, alive, camera, deform, step, sh_degree_now, warmed_up, train,
     render_mode, background, means2d_sink, camera0, render_flow,
+    shard_group=None, band_origin_y=0, band_height=None,
 ):
+    if shard_group is not None:
+        import torch.distributed as dist
+
+        ng, idx = dist.get_world_size(shard_group), dist.get_rank(shard_group)
+        cap = params["means"].shape[0]
+        if cap % ng:
+            raise ValueError(f"capacity {cap} must divide the primitive shard group's {ng} ranks")
+        rows = slice(idx * (cap // ng), (idx + 1) * (cap // ng))
+        params = {k: v[rows] for k, v in params.items()}
+        alive = alive[rows]
+        if means2d_sink is not None:
+            means2d_sink = means2d_sink[rows]
     means = params["means"]
     scales_lin = torch.exp(params["scales"])
     quats_n = params["quats"] / safe_norm(params["quats"], dim=-1, keepdim=True)
@@ -213,10 +247,15 @@ def _forward(
             )
             extra_channels = proj_t.means2d - proj_0.means2d  # (N, 2) screen motion
 
+    if shard_group is not None and means_prev is not None:
+        from ..parallel.distributed import all_gather_rows
+
+        means_prev = all_gather_rows(means_prev, shard_group)
     return render_gaussians(
         cfg, means, quats_n, scales_lin, opacities, sh_coeffs, alive, camera,
         sh_degree_now=sh_degree_now, render_mode=render_mode, background=background,
         means2d_sink=means2d_sink, extra_channels=extra_channels, means_prev=means_prev,
+        gather_axis=shard_group, band_origin_y=band_origin_y, band_height=band_height,
     )
 
 
@@ -225,6 +264,9 @@ def render_gaussians(
     sh_degree_now: int, render_mode: str, background: Optional[torch.Tensor] = None,
     means2d_sink: Optional[torch.Tensor] = None, extra_channels: Optional[torch.Tensor] = None,
     means_prev: Optional[torch.Tensor] = None,
+    gather_axis=None,
+    band_origin_y: int = 0,
+    band_height: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """`rasterization` of the (deformed) Gaussians, then the background
     composite and clamp and the detached-max depth backfill: the tail that
@@ -238,7 +280,7 @@ def render_gaussians(
         camera.viewmat[None],
         camera.K[None],
         camera.width,
-        camera.height,
+        band_height if band_height is not None else camera.height,
         tile_size=cfg.tile_size,
         near_plane=cfg.near_plane,
         far_plane=cfg.far_plane,
@@ -250,6 +292,9 @@ def render_gaussians(
         extra_channels=extra_channels,
         backend=cfg.backend,
         tight_radius=cfg.tight_radius,
+        gather_axis=gather_axis,
+        tile_origin_y=band_origin_y,
+        proj_height=camera.height if band_height is not None else None,
     )
 
     bg = background if background is not None else background_color(cfg, means.device)
@@ -300,15 +345,18 @@ def loss_fn(
     l1 = torch.mean(torch.abs(gt - pred))
     simloss = 1.0 - ssim(gt, pred)
     main_loss = (1 - cfg.ssim_lambda) * l1 + cfg.ssim_lambda * simloss
-
-    if cfg.use_scale_regularization and apply_scale_reg:
-        scale_exp = torch.exp(params["scales"])
-        ratio = scale_exp.amax(dim=-1) / torch.clamp(scale_exp.amin(dim=-1), min=1e-12)
-        reg = torch.clamp(ratio, min=cfg.max_gauss_ratio) - cfg.max_gauss_ratio
-        scale_reg = 0.1 * torch.sum(reg * alive) / torch.clamp(alive.sum(), min=1)
-    else:
-        scale_reg = torch.zeros((), device=l1.device)
+    scale_reg = scale_regularization(cfg, params, alive, apply_scale_reg)
     return {"main_loss": main_loss, "scale_reg": scale_reg, "l1": l1, "ssim": 1 - simloss}
+
+
+def scale_regularization(cfg: SplatConfig, params: GaussianParams, alive: torch.Tensor, apply: bool) -> torch.Tensor:
+    """PhysGaussian's scale-ratio regularization, when configured and `apply`."""
+    if not (cfg.use_scale_regularization and apply):
+        return torch.zeros((), device=alive.device)
+    scale_exp = torch.exp(params["scales"])
+    ratio = scale_exp.amax(dim=-1) / torch.clamp(scale_exp.amin(dim=-1), min=1e-12)
+    reg = torch.clamp(ratio, min=cfg.max_gauss_ratio) - cfg.max_gauss_ratio
+    return 0.1 * torch.sum(reg * alive) / torch.clamp(alive.sum(), min=1)
 
 
 def psnr(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:

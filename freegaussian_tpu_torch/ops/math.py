@@ -1,5 +1,5 @@
 """Core math ops: quaternions, positional embedding, viewmat and OpenCV
-camera conventions, bilinear interpolation, the integer-factor image
+camera conventions, the SO(3) exponential, bilinear interpolation, the integer-factor image
 downsample, SH DC conversion and learning-rate schedules.
 
 Torch twins of `freegaussian_tpu/ops/math.py` (same formulas, same band and
@@ -38,6 +38,27 @@ def quats_to_covar(scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor:
     """3D covariance R S S^T R^T from linear-space scales + quats."""
     L = quat_to_rotmat(quats) * scales[..., None, :]
     return L @ L.transpose(-1, -2)
+
+
+def skew(w: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3, 3) cross-product matrices."""
+    zeros = torch.zeros_like(w[..., 0])
+    rows = [
+        [zeros, -w[..., 2], w[..., 1]],
+        [w[..., 2], zeros, -w[..., 0]],
+        [-w[..., 1], w[..., 0], zeros],
+    ]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def exp_so3(w: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+    """Rodrigues' formula: unit axis (..., 3) + angle (..., 1) -> (..., 3, 3)."""
+    W = skew(w)
+    W_sqr = W @ W
+    s = torch.sin(theta)[..., None]
+    c = torch.cos(theta)[..., None]
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
+    return eye + s * W + (1.0 - c) * W_sqr
 
 
 def positional_embed(x: torch.Tensor, num_freqs: int, include_input: bool = True) -> torch.Tensor:

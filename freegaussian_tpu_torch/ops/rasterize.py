@@ -17,8 +17,14 @@ on the tile path the per-kernel-tile |d means2d| summed per Gaussian; with
 JAX package's oracle backend does). `packed=True` also returns the
 per-intersection arrays in (tile, depth) order (`gaussian_ids`,
 `isect_means2d`, `isect_depths`, `tile_ids`), exactly `num_isects` of them.
-The arguments of the multi-chip path (`gather_axis`, a band
-`tile_origin_y`) raise NotImplementedError until the slice that ports it.
+
+The multi-GPU step (`parallel/sharding.py`) renders horizontal bands:
+`tile_origin_y` and `proj_height` render rows [origin, origin + height) of
+a `proj_height`-tall frame. Projection, its clamps and culling run against
+the full frame; only the pixel stage sees band coordinates, and
+`info.means2d` stays in full-frame coordinates. `gather_axis`, a process
+group, all-gathers the render attributes of this rank's Gaussian shard
+over it (the backward reduce-scatters their gradients back to the shard).
 """
 
 from __future__ import annotations
@@ -87,7 +93,7 @@ def rasterization(
     isect_capacity: int | None = None,
     tight_radius: bool = True,
     packed: bool = False,
-    gather_axis: str | None = None,
+    gather_axis=None,
     tile_origin_y: int = 0,
     proj_height: int | None = None,
 ):
@@ -107,8 +113,8 @@ def rasterization(
         raise ValueError(f"Unknown render_mode: {render_mode}")
     if backend not in ("auto", "pallas", "reference"):
         raise ValueError(f"Unknown backend: {backend}")
-    if gather_axis is not None or tile_origin_y != 0:
-        raise NotImplementedError("gather_axis and band rendering come with the multi-GPU slice of the port")
+    if isinstance(gather_axis, str):
+        raise TypeError("gather_axis is a torch.distributed process group (the JAX package takes a mesh axis name)")
 
     viewmat = viewmats.reshape(-1, 4, 4)[0]
     K = Ks.reshape(-1, 3, 3)[0]
@@ -152,20 +158,34 @@ def rasterization(
         else:
             channels = torch.cat([channels, extra_channels], dim=-1)
 
-    radii_pixel = tighten_radii(proj.radii, opac) if tight_radius else proj.radii.float()
+    depths, radii, conics, compensations = proj.depths, proj.radii, proj.conics, proj.compensations
+    if gather_axis is not None:
+        # this rank's Gaussian shard -> every Gaussian of the group, for the
+        # pixel stage; the backward reduce-scatters each gradient to its shard
+        from ..parallel.distributed import all_gather_rows
+
+        means2d, channels, opac, depths, radii, conics, compensations = (
+            all_gather_rows(t, gather_axis) for t in (means2d, channels, opac, depths, radii, conics, compensations)
+        )
+        if sink_for_pixels is not None:
+            sink_for_pixels = all_gather_rows(sink_for_pixels, gather_axis)
+
+    # the band shift, for the pixel stage only
+    means2d_px = means2d if tile_origin_y == 0 else means2d - means2d.new_tensor([0.0, float(tile_origin_y)])
+    radii_pixel = tighten_radii(radii, opac) if tight_radius else radii.float()
 
     if backend == "reference":
         render, alpha, _ = rasterize_pixels_reference(
-            means2d, proj.conics, channels, opac, proj.depths, radii_pixel,
+            means2d_px, conics, channels, opac, depths, radii_pixel,
             width, height, tile_size=tile_size,
         )
         tiles_w = -(-width // tile_size)
         tiles_h = -(-height // tile_size)
-        tnx, tmx, tny, tmy = tile_bounds(means2d.detach(), radii_pixel, tile_size, tiles_w, tiles_h)
+        tnx, tmx, tny, tmy = tile_bounds(means2d_px.detach(), radii_pixel, tile_size, tiles_w, tiles_h)
         num_isects = int(torch.sum(torch.where(radii_pixel > 0, (tmx - tnx) * (tmy - tny), 0)))
     else:
         render, alpha, num_isects = rasterize_pixels(
-            means2d, proj.conics, channels, opac, proj.depths, radii_pixel,
+            means2d_px, conics, channels, opac, depths, radii_pixel,
             width, height, tile_size=tile_size, means2d_sink=sink_for_pixels,
         )
 
@@ -177,20 +197,20 @@ def rasterization(
     if packed:
         # the binning of the 3-sigma radii, as the JAX package's packed mode
         # bins them; the gathers go through the differentiable means2d / depths
-        isect = build_intersections(means2d.detach(), proj.radii, proj.depths.detach(), width, height, tile_size)
+        isect = build_intersections(means2d_px.detach(), radii, depths.detach(), width, height, tile_size)
         ids = isect.gauss_ids.long()
         packed_info = dict(
-            gaussian_ids=isect.gauss_ids, isect_means2d=means2d[ids], isect_depths=proj.depths[ids],
+            gaussian_ids=isect.gauss_ids, isect_means2d=means2d[ids], isect_depths=depths[ids],
             tile_ids=isect.tile_ids,
         )
         num_isects = isect.num_isects
 
     info = RasterizeInfo(
         means2d=means2d,
-        radii=proj.radii,
-        depths=proj.depths,
-        conics=proj.conics,
-        compensations=proj.compensations,
+        radii=radii,
+        depths=depths,
+        conics=conics,
+        compensations=compensations,
         num_isects=num_isects,
         **packed_info,
     )

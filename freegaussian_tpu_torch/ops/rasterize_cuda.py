@@ -586,16 +586,21 @@ def reduce_rows_by_gid(
 ) -> torch.Tensor:
     """Deterministic per-Gaussian sum of per-intersection rows (the twin of
     `rasterize_pallas.py:_reduce_rows_by_gid`): a stable sort by Gaussian id,
-    an f32 prefix sum, and differences at the group boundaries. Groups are
-    contiguous after the sort and sized `counts`. The prefix sum runs along
-    the last axis of the transposed (D, I) rows: on CUDA a scan over the
-    outer axis of (I, D) is some 300x slower. Returns (N, D) f32."""
+    a prefix sum, and differences at the group boundaries. Groups are
+    contiguous after the sort and sized `counts`. The prefix sum runs in
+    f64 (the JAX package's runs in f32): a group's difference of two f32
+    prefixes would carry ~eps x |prefix| of error, which at 1e5 Gaussians
+    outgrows the rows' own budget, and differs between a frame and its
+    bands; in f64 each sum is its rows' sum rounded once to f32. The prefix
+    sum runs along the last axis of the transposed (D, I) rows: on CUDA a
+    scan over the outer axis of (I, D) is some 300x slower. Returns (N, D)
+    f32."""
     order = torch.argsort(gauss_ids, stable=True)
-    cs = torch.cumsum(rows[order].float().t().contiguous(), dim=1)  # (D, I)
+    cs = torch.cumsum(rows[order].double().t().contiguous(), dim=1)  # (D, I)
     cs = torch.cat([cs.new_zeros((rows.shape[1], 1)), cs], dim=1)
     lo = offsets.long()
     hi = lo + counts.long()
-    return (cs[:, hi] - cs[:, lo]).t()
+    return (cs[:, hi] - cs[:, lo]).t().float()
 
 
 class _PixelStage(torch.autograd.Function):

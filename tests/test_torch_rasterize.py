@@ -252,15 +252,23 @@ def test_tighten_radii_matches_jax():
 
 
 def test_rasterization_tpu_only_arguments_raise():
+    """The multi-chip arguments, once refused, are ported: a band
+    (`tile_origin_y`, `proj_height`) renders as the JAX package's band; a
+    JAX mesh-axis name for `gather_axis` is refused (the port takes a
+    process group, tests/test_torch_parallel.py)."""
     (means, quats, scales, opac, sh), alive, arrs = _rasterization_inputs(n=20)
-    tc = torch_camera(arrs)
+    tc, jc = torch_camera(arrs), jax_camera(arrs)
     args = (*map(torch.tensor, (means, quats, scales, opac, sh)), tc.viewmat, tc.K, W, H)
-    for kw in (
-        dict(gather_axis="tile"),
-        dict(tile_origin_y=16),
-    ):
-        with pytest.raises(NotImplementedError):
-            t_rasterization(*args, sh_degree=3, **kw)
+    with pytest.raises(TypeError, match="process group"):
+        t_rasterization(*args, sh_degree=3, gather_axis="tile")
+    kw = dict(sh_degree=3, tile_size=16, render_mode="RGB+ED", backend="reference", tile_origin_y=16, proj_height=H)
+    tr, ta, ti = t_rasterization(*args[:-1], 16, **kw)
+    jr, ja, ji = j_rasterization(*map(jnp.asarray, (means, quats, scales, opac, sh)), jc.viewmat[None], jc.K[None],
+                                 W, 16, **kw)
+    np.testing.assert_allclose(tr.numpy()[..., :3], np.asarray(jr)[..., :3], atol=2e-5)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), atol=2e-5)
+    np.testing.assert_allclose(ti.means2d.numpy(), np.asarray(ji.means2d), rtol=1e-5, atol=1e-5)
+    assert ti.num_isects == int(ji.num_isects) > 0
 
 
 @pytest.mark.parametrize("tile_size", [16, 32])

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from freegaussian_tpu.ops.rasterize import rasterization as j_rasterization
+from freegaussian_tpu.ops.rasterize_pallas import _reduce_rows_by_gid as j_reduce_rows_by_gid
 from freegaussian_tpu.ops.rasterize_pallas import rasterize_pixels_pallas
 from freegaussian_tpu_torch.ops import rasterize_cuda
 from freegaussian_tpu_torch.ops.rasterize import rasterization as t_rasterization
@@ -147,6 +148,36 @@ def test_backward_rows_layout_and_every_row_written():
     g_gauss = reduce_rows_by_gid(rows, isect.gauss_ids, isect.offsets, isect.counts)
     exact = torch.zeros(206, rows.shape[1], dtype=torch.float64).index_add_(0, isect.gauss_ids.long(), rows.double())
     torch.testing.assert_close(g_gauss.double(), exact, rtol=1e-5, atol=1e-5)
+
+
+def test_reduce_rows_by_gid_rounds_once_and_matches_jax():
+    """The per-Gaussian reduction against the JAX package's on 60k seeded
+    rows (signed columns and non-negative absgrad-like ones) in 3000 groups
+    of 0-39 rows: the port's sum is the float64 sum rounded once to f32
+    (within one ulp, plus the f64 prefix's own rounding); the JAX package's
+    f32 prefix sum is within log2(I) eps of the running prefix of |rows| at
+    each group's end (the error of a log-depth scan of that length), and so
+    within the same of the port's."""
+    rng = np.random.default_rng(21)
+    n, d = 3000, 13
+    counts = rng.integers(0, 40, n).astype(np.int32)
+    total = int(counts.sum())
+    offsets = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    gids = np.repeat(np.arange(n, dtype=np.int32), counts)[rng.permutation(total)]
+    rows = rng.uniform(0, 2, (total, d)).astype(np.float32)
+    rows[:, :6] = rng.normal(size=(total, 6))
+    exact = np.zeros((n, d))
+    np.add.at(exact, gids, rows.astype(np.float64))
+    prefix = np.cumsum(np.abs(rows[np.argsort(gids, kind="stable")]).astype(np.float64), axis=0)
+    prefix_end = np.concatenate([np.zeros((1, d)), prefix])[offsets + counts]
+    eps = float(np.finfo(np.float32).eps)
+    got = reduce_rows_by_gid(*map(torch.tensor, (rows, gids, offsets, counts))).numpy()
+    want = np.asarray(j_reduce_rows_by_gid(*map(jnp.asarray, (rows, gids, offsets, counts))))[:n]
+    assert got.dtype == np.float32 and got.shape == (n, d)
+    assert np.all(np.abs(got - exact) <= eps * np.abs(exact) + 2.0**-40 * prefix_end)
+    scan = np.log2(total) * eps * prefix_end
+    assert np.all(np.abs(want - exact) <= scan)
+    assert np.all(np.abs(got - want) <= scan)
 
 
 def test_pixel_stage_gradcheck_in_float64():

@@ -3,7 +3,8 @@
 `update_stats`, `refine` (with the JAX package's own split-sample normals
 handed to the port) and `zero_moment_rows` on the same padded state; the
 counts, masks and scattered rows must agree exactly (float rows to f32
-rounding: rtol 1e-6). `init_gaussians` with seed points against the JAX
+rounding: rtol 1e-6; the split samples' means to 4 f32 eps of their
+summands, `_assert_means_close`). `init_gaussians` with seed points against the JAX
 version (its sklearn KNN against the port's torch.cdist blocks).
 """
 
@@ -36,6 +37,49 @@ def _state(seed=0):
         "max_2dsize": (rng.uniform(0, 0.25, size=CAP) * alive).astype(np.float32),
     }
     return params, alive, stats
+
+
+def _rotmat64(quats):
+    q = quats / np.sqrt((quats * quats).sum(-1, keepdims=True) + 1e-24)
+    w, x, y, z = np.moveaxis(q, -1, 0)
+    return np.stack(
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+         2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+         2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], axis=-1,
+    ).reshape(q.shape[:-1] + (3, 3))
+
+
+def _assert_means_close(params, alive, draws, got, jp):
+    """`means` after a refine, row by row. A split sample x = mean + R(quat)
+    (exp(scale) * eps) is held, per element, to 4 f32 eps times its
+    summands, |mean| + sum_j |exp(scale_j) eps_j| (each entry of R carries
+    an absolute error of a few eps whatever its size: the entries are sums
+    like 1 - 2 (y^2 + z^2) of a normalized quaternion), against the JAX
+    value and against the float64 value of the same formula on the same f32
+    inputs. Both packages round it differently: XLA on the CPU normalizes
+    the quaternion by a reciprocal square root (0.7-0.8 ulp off), PyTorch by
+    a correctly rounded division, and R's cancellation scales that up. Rows
+    a refine copies or leaves are bit-equal. Returns the split rows' count."""
+    want = np.asarray(jp["means"])
+    rest = np.asarray(jp["features_rest"])
+    m = params["means"].astype(np.float64)
+    rots = _rotmat64(params["quats"].astype(np.float64))
+    s = np.exp(params["scales"].astype(np.float64))
+    n_split = 0
+    for i in range(len(want)):
+        src = np.flatnonzero((params["features_rest"] == rest[i]).all(-1) & alive)
+        if len(src) != 1 or np.array_equal(want[i], params["means"][src[0]]):
+            np.testing.assert_array_equal(got[i], want[i], err_msg=f"means row {i}")
+            continue
+        n = src[0]
+        samples = [(m[n] + rots[n] @ (s[n] * e[n]), np.abs(m[n]) + np.abs(s[n] * e[n]).sum()) for e in draws]
+        exact, summands = min(samples, key=lambda c: np.abs(c[0] - want[i]).max())
+        atol = 4 * np.finfo(np.float32).eps * summands
+        for name, a, b in (("port vs JAX", got[i], want[i]), ("JAX vs float64", want[i], exact),
+                           ("port vs float64", got[i], exact)):
+            np.testing.assert_array_less(np.abs(a - b), atol, err_msg=f"means row {i} (split sample), {name}")
+        n_split += 1
+    return n_split
 
 
 def test_update_stats_matches_jax():
@@ -80,7 +124,10 @@ def test_refine_matches_jax_with_the_same_draws(step):
     assert bool(tinfo["reset_opacity_moments"]) == bool(jinfo["reset_opacity_moments"])
     np.testing.assert_array_equal(tinfo["moment_zero_mask"].numpy(), np.asarray(jinfo["moment_zero_mask"]))
     for k in params:
-        np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7, err_msg=k)
+        if k != "means":
+            np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7, err_msg=k)
+    n_split = _assert_means_close(params, alive, (eps[0].numpy(), eps[1].numpy()), tp["means"].numpy(), jp)
+    assert (n_split > 0) == (step in (700, 4500))
     for k in stats:
         np.testing.assert_array_equal(getattr(td, k).numpy(), np.asarray(getattr(jd, k)))
     assert bool(tinfo["reset_opacity_moments"]) == (step == 3100)

@@ -161,13 +161,82 @@ def test_train_step_matches_jax_one_step():
 
 
 def test_train_step_refuses_unported_options():
-    opts = make_optimizers(OptimizersConfig())
-    with pytest.raises(NotImplementedError, match="camera"):
-        make_train_step(SplatConfig(camera_optimizer_mode="SO3xR3"), DensifyConfig(), opts, 1)
-    with pytest.raises(NotImplementedError, match="bilateral"):
-        make_train_step(SplatConfig(use_bilateral_grid=True), DensifyConfig(), opts, 1)
-    with pytest.raises(NotImplementedError, match="camera"):
-        make_train_step(SplatConfig(), DensifyConfig(), opts, 1, train_camera_opt=True)
+    """Camera optimization and the bilateral grid, once refused, are ported:
+    the step builds with each, and a state that does not carry their tensors
+    takes the same step as with both off (the JAX step skips them then)."""
+    opts = make_optimizers(OptimizersConfig(max_steps=1000))
+    losses = []
+    for cfg, kw in (
+        (SplatConfig(**MODEL), {}),
+        (SplatConfig(camera_optimizer_mode="SO3xR3", use_bilateral_grid=True, **MODEL), {}),
+        (SplatConfig(**MODEL), {"train_camera_opt": True}),
+    ):
+        _, tstate, _, _, cams = _setup()
+        step = make_train_step(cfg, DensifyConfig(**DENSIFY), opts, 0, **kw)
+        batch = {k: torch.tensor(v) for k, v in _batch().items()}
+        _, m = step(tstate, torch_camera(cams[0]), batch, 3, camera0=torch_camera(cams[1]), cam_idx=1)
+        losses.append(float(m["loss"]))
+    assert losses[0] == losses[1] == losses[2]
+
+
+EXTRAS = dict(MODEL, camera_optimizer_mode="SO3xR3", use_bilateral_grid=True, backend="reference", tile_size=16)
+
+
+def test_train_step_with_camera_opt_and_bilagrid_matches_jax():
+    """Both extras on, from one seeded state (adjustments N(0, 0.02), grids
+    identity + N(0, 0.05), fresh Adam states; camera_opt_warmup 0, so the
+    adjustments move by ~lr in the first step), camera and image 1 of 3:
+    the loss to rtol 1e-5, both groups after Adam to rtol 1e-5 (plus 1e-4 of
+    the step), their first moments (the gradients) to the gradient budget. Both packages run the
+    dense reference compositor: the extras do not touch the pixel stage."""
+    from freegaussian_tpu.engine.optimizers import OptimizersConfig as JOptimizersConfig
+    from freegaussian_tpu.engine.optimizers import init_opt_states as j_init_opt_states
+    from freegaussian_tpu.engine.optimizers import make_optimizers as j_make_optimizers
+    from freegaussian_tpu.models.bilagrid import init_bilateral_grids
+    from freegaussian_tpu_torch.engine.optimizers import init_opt_states
+
+    jstate, tstate, field, _ = train_state_pair(n=150, capacity=180, seed=5)
+    rng = np.random.default_rng(9)
+    extras = {
+        "camera_opt": rng.normal(scale=0.02, size=(3, 6)).astype(np.float32),
+        "bilateral_grid": (np.asarray(init_bilateral_grids(3)) + rng.normal(scale=0.05, size=(3, 8, 16, 16, 12))).astype(np.float32),
+    }
+    j_opts = j_make_optimizers(JOptimizersConfig(max_steps=1000, camera_opt_warmup=0))
+    t_opts = make_optimizers(OptimizersConfig(max_steps=1000, camera_opt_warmup=0))
+    jstate = jstate.replace(
+        camera_opt=jnp.asarray(extras["camera_opt"]), bilagrid=jnp.asarray(extras["bilateral_grid"]),
+        opt_states={**jstate.opt_states, **j_init_opt_states(j_opts, {k: jnp.asarray(v) for k, v in extras.items()})},
+    )
+    tstate.camera_opt = torch.tensor(extras["camera_opt"], requires_grad=True)
+    tstate.bilagrid = torch.tensor(extras["bilateral_grid"], requires_grad=True)
+    tstate.opt_states.update(init_opt_states(t_opts, {k: {k: torch.tensor(v)} for k, v in extras.items()}))
+
+    j_step = jax.jit(
+        j_make_train_step(JConfig(**EXTRAS), JDensifyConfig(**DENSIFY), j_opts, field.apply, num_train_data=0, jit=False),
+        static_argnames=("sh_degree_now",),
+    )
+    t_step = make_train_step(SplatConfig(**EXTRAS), DensifyConfig(**DENSIFY), t_opts, 0)
+    cams = [camera_arrays(time=0.6), camera_arrays(eye=(0.7, 0.55, 4.1), time=0.45)]
+    batch = _batch()
+    draws = jax_step_draws(jstate.key, 180)
+    jstate, jm = j_step(jstate, jax_camera(cams[0]), {k: jnp.asarray(v) for k, v in batch.items()}, 3,
+                        camera0=jax_camera(cams[1]), cam_idx=jnp.asarray(1))
+    tstate, tm = t_step(tstate, torch_camera(cams[0]), {k: torch.tensor(v) for k, v in batch.items()}, 3,
+                        camera0=torch_camera(cams[1]), draws=draws, cam_idx=1)
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
+    for g, got, want in (("camera_opt", tstate.camera_opt, jstate.camera_opt),
+                         ("bilateral_grid", tstate.bilagrid, jstate.bilagrid)):
+        # atol: 1e-4 of the Adam step. The two packages round the bias
+        # corrections differently (~6e-6 of the step), which shows in entries
+        # whose value the step nearly cancels
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-4 * t_opts[g].rate(0),
+                                   err_msg=g)
+        assert not np.array_equal(got.detach().numpy(), extras[g]), g  # the group moved
+        mu = adam_state_from_optax(g, jax.tree.map(np.asarray, jstate.opt_states[g]), device="cpu").mu[g]
+        torch.testing.assert_close(tstate.opt_states[g].mu[g], mu, rtol=1e-3, atol=1e-3 * float(mu.abs().max()), msg=g)
+    # cameras 0 and 2 take only the regularizer's gradient, 2 x penalty x adjustment
+    reg_grad = 2 * np.array([1e-3] * 3 + [1e-2] * 3, np.float32) * extras["camera_opt"][[0, 2]]
+    np.testing.assert_allclose(tstate.opt_states["camera_opt"].mu["camera_opt"][[0, 2]].numpy(), 0.1 * reg_grad, rtol=1e-5)
 
 
 def test_train_step_draws_from_the_state_generator():

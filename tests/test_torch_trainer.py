@@ -112,8 +112,8 @@ def _trainers(data, tmp_path, steps):
     draws = {}
     real = tt.step_fn
 
-    def step_fn(state, camera, batch, sh_degree_now, camera0=None):
-        return real(state, camera, batch, sh_degree_now, camera0=camera0, draws=draws["now"])
+    def step_fn(state, camera, batch, sh_degree_now, camera0=None, cam_idx=0):
+        return real(state, camera, batch, sh_degree_now, camera0=camera0, draws=draws["now"], cam_idx=cam_idx)
 
     tt.step_fn = step_fn
     return jt, tt, draws
@@ -168,12 +168,18 @@ def test_trainer_matches_jax_three_steps(dataset, tmp_path):
     _run(dataset, tmp_path, 3)
 
 
-def test_checkpoint_round_trip(dataset, tmp_path):
+EXTRAS = dict(camera_optimizer_mode="SO3xR3", use_bilateral_grid=True)
+
+
+@pytest.mark.parametrize("extras", [False, True], ids=["plain", "camera_opt+bilagrid"])
+def test_checkpoint_round_trip(dataset, tmp_path, extras):
     """save -> load into a fresh trainer is bit-equal (every tensor, the Adam
     counts, the step, the generator), re-saving a step overwrites it, and
-    training on from the loaded state takes the same step as the original."""
+    training on from the loaded state takes the same step as the original;
+    with the extras, their tensors and Adam groups too, and a state without
+    them refuses the checkpoint."""
     cfg = TrainerConfig(
-        **_common(dataset, tmp_path, 2), splat=SplatConfig(deform_impl="headsfused", **MODEL),
+        **_common(dataset, tmp_path, 2), splat=SplatConfig(deform_impl="headsfused", **MODEL, **(EXTRAS if extras else {})),
         densify=DensifyConfig(**DENSIFY),
     )
     a = Trainer(cfg, device="cpu")
@@ -196,6 +202,67 @@ def test_checkpoint_round_trip(dataset, tmp_path):
             assert v == fb[k], k
     ma, mb = a.train(1), b.train(1)
     assert ma["loss"] == mb["loss"] and ma["step"] == mb["step"] == 2
+    if extras:
+        assert {"camera_opt", "bilagrid"} <= set(fa) and {"camera_opt", "bilateral_grid"} <= set(sa["opt_states"])
+        assert a.state.camera_opt.abs().max() > 0 and torch.equal(a.state.bilagrid, b.state.bilagrid)
+        plain = Trainer(dataclasses.replace(cfg, splat=SplatConfig(deform_impl="headsfused", **MODEL)), device="cpu")
+        with pytest.raises(KeyError, match="camera_opt"):
+            plain.load(path)
+
+
+def test_extras_checkpoint_serves_eval_render_viewer_and_stage2(dataset, tmp_path):
+    """A `train` checkpoint with camera optimization and the bilateral grid
+    (enabled by the YAML overlay) loads in `eval`, `render` and the viewer
+    under the same config, which render without either (the grid is
+    training-only, the adjustments fit the training cameras), and
+    cross-loads into stage 2, which trains neither."""
+    import io
+    from contextlib import redirect_stdout
+
+    from freegaussian_tpu_torch.engine.control_trainer import ControlTrainer
+
+    out = tmp_path / "out"
+    over = _overrides(tmp_path, f"""
+max_num_iterations: 2
+capacity: {CAPACITY}
+num_random: 60
+steps_per_log: 1
+output_dir: {out}
+vis: jsonl
+pipeline:
+  model:
+    warm_up: 0
+    num_downscales: 0
+    camera_optimizer_mode: SO3xR3
+    use_bilateral_grid: true
+""")
+    flags = ["--data", str(dataset), "--config", str(REPO / "configs/sim/base.yaml"), "--scene-config", over,
+             "--device", "cpu"]
+    with redirect_stdout(io.StringIO()):
+        trainer, _ = cli._train(cli.build_parser().parse_args(["train", *flags]))
+    ckpts = out / "freegaussian" / "checkpoints"
+    saved = checkpoints.read_checkpoint(ckpts)
+    assert saved["camera_opt"].shape == (len(trainer.datamanager), 6) and saved["camera_opt"].abs().max() > 0
+    assert saved["bilagrid"].shape == (len(trainer.datamanager), 8, 16, 16, 12)
+    assert {"camera_opt", "bilateral_grid"} <= set(saved["opt_states"])
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        cli.main(["eval", *flags, "--load", str(ckpts)])
+        cli.main(["render", *flags, "--load", str(ckpts), "--out", str(tmp_path / "r")])
+    result = json.loads(buf.getvalue().strip().splitlines()[-2])
+    assert np.isfinite(result["psnr"]) and len(list((tmp_path / "r/rgb").glob("*.png"))) > 0
+    args = cli.build_parser().parse_args(["viewer", *flags, "--load", str(ckpts), "--port", "0", "--host", "127.0.0.1"])
+    served, server = cli.serve_viewer(args)
+    server.shutdown()
+    assert torch.equal(served.state.camera_opt, saved["camera_opt"])
+    mask_path = tmp_path / "gaussian_mask_60x2.npy"
+    np.save(mask_path, np.random.default_rng(2).uniform(size=(60, 2)) < 0.5)
+    stage2 = ControlTrainer(trainer.config, load_deformable_checkpoint=ckpts, gaussian_mask_path=mask_path,
+                            device="cpu")
+    assert stage2.state.camera_opt is None and stage2.state.bilagrid is None
+    assert "camera_opt" not in stage2.state.opt_states and "bilateral_grid" not in stage2.state.opt_states
+    assert torch.equal(stage2.state.params["means"].detach(), saved["params"]["means"])
+    assert np.isfinite(stage2.train(1)["loss"])
 
 
 def _overrides(tmp_path, text):
