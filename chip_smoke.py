@@ -197,6 +197,23 @@ world size 1, with every kernel built from this checkout. Phases, printed as eac
               step does not use; PERF.md §7) at (1, 2) and
               (2, 1): one step against the single steps (loss, first
               moments), the ranks' parameters bit-equal
+ 24. graphs   the capacity-bounded binning and `scan_chunk` as CUDA-graph
+              replays (`graphs` lines): rows 1 and 2 on slot lists padded
+              to 6 slots a Gaussian and overflowing at 3/4 of the pairs,
+              against their plain versions with phase 4's budgets, the
+              padding rows zero, the overflow's kept pairs the CPU
+              binning's; the reduction's ms at the padded capacity; the
+              ellipse cull on against off (pairs, binning ms, the frame
+              within 2e-5); then stage 1 and stage 2 with `scan_chunk` 10
+              (two chunks, stage 1 with a refinement inside the second)
+              against the eager per-step loop from the same state, built
+              as the `train` and `train-control` verbs build them: losses
+              (rtol 1e-4), every parameter and first moment (max |diff|,
+              and relative L2 within 1e-2), then the wall ms per step of
+              each in turns, one profiler window of a chunk each (busy
+              share, device events per step), the capture time and the
+              launches with the replays' (a capture or replay failure
+              raises; there is no eager fallback)
 
 Then one JSON line of kernel records and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -697,12 +714,14 @@ def _colors(chans, motion, C: int):
     return torch.cat(layouts[C], dim=1).contiguous()
 
 
-def _check_forward(inputs, width: int, height: int, tiles, channels, frame: str = "bench", timed: bool = True):
+def _check_forward(inputs, width: int, height: int, tiles, channels, frame: str = "bench", timed: bool = True,
+                   capacity: int | None = None):
     """The compositor forward (row 1) against its plain version at each tile
     size and channel count: the color within KERNEL_ATOL of its largest
     value, alpha within KERNEL_ATOL, livecnt and t_final bit for bit, and
     two calls bit-equal. `timed` adds the kernel's and the plain version's
     ms and the bound (its pair count from the first tile size's livecnt).
+    `capacity` bins into that many slots (padded, or overflowing).
     Returns (rows, that pair count)."""
     import torch
 
@@ -716,7 +735,7 @@ def _check_forward(inputs, width: int, height: int, tiles, channels, frame: str 
     rows = []
     pairs = None
     for tile in tiles:
-        isect = build_intersections(m2d, radii, depths, width, height, tile)
+        isect = build_intersections(m2d, radii, depths, width, height, tile, capacity)
         for C in channels:
             col = _colors(chans, motion, C)
             args = (m2d, con, col, opac, radii, isect.gauss_ids, isect.tile_offsets, width, height, tile)
@@ -737,8 +756,8 @@ def _check_forward(inputs, width: int, height: int, tiles, channels, frame: str 
             if pairs is None:
                 pairs = int(got[2].long().sum())
             row = dict(
-                frame=frame, width=width, height=height, tile=tile, C=C, num_isects=isect.num_isects,
-                max_abs_err=err, color_scale=color_scale, color_err=color_err, alpha_err=alpha_err,
+                frame=frame, width=width, height=height, tile=tile, C=C, num_isects=int(isect.num_isects),
+                slots=int(isect.gauss_ids.shape[0]), max_abs_err=err, color_scale=color_scale, color_err=color_err, alpha_err=alpha_err,
                 pixels_over_1e6_of_scale=over, livecnt_mismatch=live_diff, t_final_mismatch=tfinal_diff,
                 bit_equal=bit_equal,
             )
@@ -848,7 +867,7 @@ def _check_deform(x, t_row, ws, bs, head_w, head_b, timed: bool = True) -> dict:
 
 
 def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16, frame: str = "bench",
-                    tiles=(16, 32), channels=(3, 5)):
+                    tiles=(16, 32), channels=(3, 5), capacity: int | None = None):
     """The backward kernels against their plain version (autograd through
     the plain compositor, the same function for both walks) on the serving
     scene's pixel-stage inputs: C = 3 (RGB) and C = 5 (RGB + a seeded
@@ -863,7 +882,8 @@ def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16
     row 2's, which reads the forward's own live counts. Another `frame`
     (a capture's own frame shape, with its `tiles` and `channels`) checks
     the reverse walk alone, with no plain time or bound: the same budget,
-    and two calls bit-equal."""
+    and two calls bit-equal. `capacity` bins into that many slots: the
+    rows of the padding slots (gauss_ids N) must then be zero."""
     import torch
 
     from freegaussian_tpu_torch.ops.rasterize_cuda import (
@@ -892,7 +912,7 @@ def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16
     for frame, keep, tiles, channels in frames:
         fm2d, fcon, fchans, fopac, fdepths, fradii, fflow = (a[keep].contiguous() for a in (m2d, con, chans, opac, depths, radii, flow))
         for tile in tiles:
-            isect = build_intersections(fm2d, fradii, fdepths, width, height, tile)
+            isect = build_intersections(fm2d, fradii, fdepths, width, height, tile, capacity)
             for C in channels:
                 col = _colors(fchans, fflow, C)
                 fwd_args = (fm2d, fcon, col, fopac, fradii, isect.gauss_ids, isect.tile_offsets)
@@ -912,12 +932,12 @@ def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16
                 torch.cuda.synchronize()
                 # the plain backward is autograd over a Python loop (seconds a call): two runs, no warm-up
                 p_ms = cuda_ms(lambda: rasterize_tiles_bwd_plain(*pargs), reps=2, warmup=0) if frame == "bench" else None
-                bound_ms, bound_by = backward_bound(fm2d.shape[0], C, isect.num_isects, isect.num_tiles, width * height, pairs16) if frame == "bench" else (None, None)
+                bound_ms, bound_by = backward_bound(fm2d.shape[0], C, int(isect.num_isects), isect.num_tiles, width * height, pairs16) if frame == "bench" else (None, None)
                 for walk, rows_k, args, fn in walks:
                     name = "rasterize_bwd" if walk == "rev" else "rasterize_bwd_fwd"
                     diff, outside, rel = budget(rows_k, want)
                     row = dict(
-                        frame=frame, walk=walk, tile=tile, C=C, num_isects=isect.num_isects, elements=rows_k.numel(),
+                        frame=frame, walk=walk, tile=tile, C=C, num_isects=int(isect.num_isects), elements=rows_k.numel(),
                         max_abs_err=float(diff.max()), max_rel_err_where_above_1e3=rel, outside_budget=outside,
                         outside_share=outside / max(rows_k.numel(), 1), zero_rows=int((rows_k == 0).all(1).sum()),
                         ms=cuda_ms(lambda: fn(*args), reps=25), plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -928,6 +948,13 @@ def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16
                             row["reduction"] = _reduction_error(rows_k, isect)
                     elif not bench:
                         row.update(width=width, height=height, bit_equal=bool(torch.equal(fn(*args), rows_k)))
+                    if capacity is not None:
+                        padding = isect.gauss_ids >= fm2d.shape[0]
+                        row.update(slots=int(isect.gauss_ids.shape[0]), padding_slots=int(padding.sum()),
+                                   nonzero_padding_rows=int((rows_k[padding] != 0).any(1).sum()))
+                        if row["nonzero_padding_rows"]:
+                            raise AssertionError(f"{name} at capacity {capacity} ({frame}): "
+                                                 f"{row['nonzero_padding_rows']} padding rows are not zero")
                     if walk == "fwd":
                         row["max_abs_diff_to_rev_kernel"] = float((rows_k - got).abs().max())
                         row["outside_budget_to_rev_kernel"] = budget(rows_k, got)[1]
@@ -3350,6 +3377,265 @@ def phase_parallel(model, ckpt: Path) -> dict:
     return {"launches": counts, "ms": med}
 
 
+# Phase 24: capacity-bounded binning, the ellipse cull, and scan_chunk as CUDA-graph replays
+GRAPH_CHUNK = 10
+GRAPH_STEPS = 2 * GRAPH_CHUNK  # two chunks
+GRAPH_REFINE_AT = 15  # one refinement inside the second chunk, eagerly between replays
+GRAPH_LOSS_RTOL = 1e-4  # the step's budget (TRAIN_CHECK_RTOL for the first moments)
+CULL_ATOL = 2e-5
+
+
+# the port's kernels by the names the profiler gives them
+PORT_KERNEL_NAMES = ("rasterize_fwd", "rasterize_bwd_walk", "rasterize_bwd_combine", "field_fwd", "field_dgrad",
+                     "field_wgrad")
+
+
+def _device_window(fn, reps: int) -> dict:
+    """One torch.profiler window over `reps` calls of fn (profile_serve.py's
+    measure): the device's own events (kernels, copies) per call and their
+    summed time over the window's wall time, the device busy share; the
+    heaviest events and the port's kernels (ms per call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    device_us = events = 0
+    heavy = []
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
+            device_us += ev.self_device_time_total
+            events += ev.count
+            heavy.append((ev.self_device_time_total / 1e3 / reps, ev.count / reps, ev.key[:60]))
+    if not events:
+        return {"device_busy_share": "not measured", "device_events_per_call": "not measured"}
+    heavy.sort(reverse=True)
+    port = {k: sum(ms for ms, _, name in heavy if k in name) for k in PORT_KERNEL_NAMES}
+    return {"device_ms_per_call": device_us / 1e3 / reps, "device_busy_share": device_us / 1e3 / window_ms,
+            "device_events_per_call": events / reps, "window_wall_ms_per_call": window_ms / reps,
+            "port_kernels_ms_per_call": {k: v for k, v in port.items() if v > 0},
+            "top_events_ms_per_call": [[round(ms, 4), c, name] for ms, c, name in heavy[:10]]}
+
+
+def check_slot_lists(model, card: str) -> dict:
+    """Rows 1 and 2 on capacity-bounded slot lists at the bench frame (tile
+    32): padded to the initial capacity rule's 6 slots a Gaussian, and
+    overflowing at 3/4 of the pairs, each against its plain version at phase
+    4's budgets, the padding rows zero; the overflow's kept pairs equal to
+    the CPU binning's (which the tests hold to the JAX package's); the
+    reduction's time at the padded capacity; and the ellipse cull on
+    against off (pairs kept, binning ms, the frame within CULL_ATOL)."""
+    import torch
+
+    from freegaussian_tpu_torch.ops.rasterize_cuda import rasterize_tiles, reduce_rows_by_gid
+    from freegaussian_tpu_torch.ops.tiles import build_intersections
+
+    width, height = SERVE_WH
+    inputs, _ = pixel_stage_inputs(model, bench_camera(width, height, DEVICE))
+    m2d, con, chans, opac, depths, radii = inputs
+    n = m2d.shape[0]
+    total = build_intersections(m2d, radii, depths, width, height, 32).num_isects
+    padded, overflow = 6 * n, total * 3 // 4
+    out = {"pairs": total, "padded_capacity": padded, "overflow_capacity": overflow}
+    for label, cap in (("padded", padded), ("overflow", overflow)):
+        _check_forward(inputs, width, height, (32,), (3, 4), frame=label, timed=False, capacity=cap)
+        _check_backward(m2d, con, chans, opac, depths, radii, width, height, None, frame=label, tiles=(32,),
+                        channels=(5,), capacity=cap)
+    card_bins = build_intersections(m2d, radii, depths, width, height, 32, overflow)
+    cpu_bins = build_intersections(m2d.cpu(), radii.cpu(), depths.cpu(), width, height, 32, overflow)
+    differ = [k for k in ("gauss_ids", "tile_ids", "tile_offsets", "counts", "offsets")
+              if not torch.equal(getattr(card_bins, k).cpu(), getattr(cpu_bins, k))]
+    kept = int(card_bins.tile_offsets[-1])
+    print(f"graphs overflow: capacity {overflow} of {total} pairs, {kept} kept; card vs CPU binning differs in "
+          f"{differ or 'nothing'} ({card})")
+    if differ or kept != overflow or int(card_bins.num_isects) != total:
+        raise AssertionError(f"overflowing binning: {differ}, kept {kept}, num_isects {int(card_bins.num_isects)}")
+
+    # the per-Gaussian reduction (its f64 prefix spans the capacity): at the
+    # padded capacity against the exact size, the same rows
+    rows = {}
+    for label, cap in (("exact", None), ("padded", padded)):
+        b = build_intersections(m2d, radii, depths, width, height, 32, cap)
+        r = torch.randn(b.gauss_ids.shape[0], 13, device=m2d.device)
+        r[b.gauss_ids >= n] = 0.0
+        rows[label] = (r, b)
+    ms = {label: cuda_ms(lambda r=r, b=b: reduce_rows_by_gid(r, b.gauss_ids, b.offsets, b.counts), reps=10)
+          for label, (r, b) in rows.items()}
+    out["reduction_ms"] = ms
+    print(f"graphs reduction: {ms['padded']:.3f} ms over the padded capacity's {padded} slots against "
+          f"{ms['exact']:.3f} ms over the {total} pairs ({card})")
+
+    # the cull, on against off, at the padded capacity
+    col = chans[:, :3].contiguous()
+    bbox = build_intersections(m2d, radii, depths, width, height, 32, padded)
+    culled = build_intersections(m2d, radii, depths, width, height, 32, padded, conics=con, opacities=opac)
+    f_bbox = rasterize_tiles(m2d, con, col, opac, radii, bbox.gauss_ids, bbox.tile_offsets, width, height, 32)
+    f_cull = rasterize_tiles(m2d, con, col, opac, radii, culled.gauss_ids, culled.tile_offsets, width, height, 32)
+    err = max(float((f_cull[i] - f_bbox[i]).abs().max()) for i in (0, 1))
+    bin_ms = {label: cuda_ms(lambda kw=kw: build_intersections(m2d, radii, depths, width, height, 32, padded, **kw), reps=10)
+              for label, kw in (("off", {}), ("on", dict(conics=con, opacities=opac)))}
+    out["cull"] = dict(pairs_off=int(bbox.tile_offsets[-1]), pairs_on=int(culled.tile_offsets[-1]),
+                       num_isects_on=int(culled.num_isects), max_abs_diff=err, binning_ms=bin_ms)
+    print(f"graphs cull: pairs {out['cull']['pairs_off']} off, {out['cull']['pairs_on']} on; frame max |diff| {err:.3g} "
+          f"(budget {CULL_ATOL}); binning {bin_ms['off']:.3f} ms off, {bin_ms['on']:.3f} ms on ({card})")
+    if not err <= CULL_ATOL or not out["cull"]["pairs_on"] <= out["cull"]["pairs_off"]:
+        raise AssertionError(f"ellipse cull: frame max |diff| {err} > {CULL_ATOL}, or more pairs kept")
+    return out
+
+
+def _hold_graphed(label: str, eager, graphed, card: str) -> dict:
+    """The graphed run's logged losses and final state against the eager
+    per-step loop's: losses within GRAPH_LOSS_RTOL, every parameter and
+    first moment as max |diff| (bit equality predicted), the first moments
+    within TRAIN_CHECK_RTOL relative L2."""
+    rows = [[r for r in _verb_metrics(t.out_dir.parent)[0]] for t in (eager, graphed)]
+    losses = [[(r["step"], r["loss"]) for r in rr] for rr in rows]
+    if [s for s, _ in losses[0]] != [s for s, _ in losses[1]]:
+        raise AssertionError(f"{label}: logged steps {losses}")
+    loss_diff = max(abs(a - b) / max(abs(b), 1e-12) for (_, a), (_, b) in zip(losses[1], losses[0]))
+    se, sg = eager.state, graphed.state
+    param_diff = max(float((sg.params[k] - se.params[k]).detach().abs().max()) for k in se.params)
+    mu_diff = max(float((sg.opt_states[g].mu[k] - st.mu[k]).abs().max()) for g, st in se.opt_states.items() for k in st.mu)
+    mu_l2 = max(_rel_l2(sg.opt_states[g].mu[k], st.mu[k]) for g, st in se.opt_states.items() for k in st.mu)
+    out = dict(losses_graphed=losses[1], losses_eager=losses[0], loss_max_rel_diff=loss_diff,
+               params_max_abs_diff=param_diff, first_moments_max_abs_diff=mu_diff, first_moments_max_rel_l2=mu_l2,
+               bit_equal=loss_diff == param_diff == mu_diff == 0.0, alive_equal=bool((sg.alive == se.alive).all()))
+    print(f"graphs {label} check: {json.dumps(out)} ({card})")
+    if not (loss_diff <= GRAPH_LOSS_RTOL and mu_l2 <= TRAIN_CHECK_RTOL and out["alive_equal"]):
+        raise AssertionError(f"{label}: graphed vs eager outside the step's budgets: {out}")
+    return out
+
+
+def _per_step(v, steps: int):
+    """A profiler window's figures per call (a number, a dict of them, or
+    [ms, count, name] rows) over the `steps` steps of the call."""
+    if isinstance(v, dict):
+        return {k: _per_step(x, steps) for k, x in v.items()}
+    if isinstance(v, list):
+        return [[round(ms / steps, 4), c / steps, name] for ms, c, name in v]
+    return v / steps
+
+
+def _time_graphed(label: str, eager, graphed, steps: int, card: str) -> dict:
+    """Wall ms per step of `steps` more steps of each (host clock to a
+    synchronize, in turns: eager, graphed, graphed, eager), then one
+    profiler window of one chunk each: busy share and device events per
+    step."""
+    import torch
+
+    walls = {"eager": [], "graphed": []}
+    for name in ("eager", "graphed", "graphed", "eager"):
+        t = eager if name == "eager" else graphed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train(steps)
+        torch.cuda.synchronize()
+        walls[name].append((time.perf_counter() - t0) * 1e3 / steps)
+    out = {name: {"wall_ms_per_step": w} for name, w in walls.items()}
+    for name, t in (("eager", eager), ("graphed", graphed)):
+        window = _device_window(lambda t=t: t.train(GRAPH_CHUNK), 1)
+        for k, v in window.items():
+            keep = isinstance(v, str) or k == "device_busy_share"
+            out[name][k.replace("_per_call", "_per_step")] = v if keep else _per_step(v, GRAPH_CHUNK)
+    out["capture_s"] = graphed.graph_stats["capture_s"]
+    out["captures"] = graphed.graph_stats["captures"]
+    print(f"graphs {label} time: {json.dumps(out)} ({card})")
+    return out
+
+
+def phase_graphs(tmp: Path, data: Path, model, card: str) -> dict:
+    """Phase 24 (`graphs` lines): `check_slot_lists`, then stage 1 and stage
+    2 with `scan_chunk` GRAPH_CHUNK (two chunks, each chunk CUDA-graph
+    replays; stage 1 with one refinement inside the second chunk) against
+    the eager per-step loop from the same state. Both are built as the
+    `train` and `train-control` verbs build them over phase 13's dataset
+    and `--load` the bench scene moved into its frame
+    (`bench_scene_checkpoint`: N = 1e5 at step 30000, 640x480, tile 32,
+    capacity 2^18, the binning's capacity the rule's 6 slots a Gaussian;
+    stage 2 over that checkpoint with a seeded cluster mask, deform_impl
+    "pallas"): losses and state held by `_hold_graphed`, then the wall ms
+    per step, busy share, device events per step and capture time of each
+    (`_time_graphed`). Launches are zeroed before each graphed run and read
+    after; a replay's launches are its graph's captured launches
+    (`trainer.graph_stats`), which the counters do not see."""
+    import torch
+
+    from freegaussian_tpu_torch import cli
+    from freegaussian_tpu_torch.preprocess.clustering import save_gaussian_mask
+
+    out = {"slots": check_slot_lists(model, card)}
+    n = int(model.alive.shape[0])
+    # a verb trainer (from a small random init) writes the bench checkpoint and the mask
+    base = ["--data", str(data), "--config", str(HERE / "configs/sim/base.yaml"), "--capacity", str(VERB_CAPACITY),
+            "--device", DEVICE]
+    small = _write(tmp / "graphs_small.yaml", "num_random: 1000\nvis: jsonl\n")
+    scratch = cli._build_trainer(cli.build_parser().parse_args(["train", *base, "--scene-config", str(small)]), False)
+    ckpt = bench_scene_checkpoint(scratch, model, tmp / "graphs_bench")
+    alive = scratch.state.alive.cpu()
+    del scratch
+    live_mask = synthetic_mask(model.params["means"].detach()[model.alive].cpu().numpy())
+    full = torch.zeros((alive.shape[0], live_mask.shape[1]), dtype=torch.bool)
+    full[alive] = torch.from_numpy(live_mask)
+    mask = tmp / f"graphs_mask_{live_mask.shape[0]}x{live_mask.shape[1]}.npy"
+    save_gaussian_mask(mask, full, alive)
+
+    launch_total = {k: 0 for k in launches()}
+    for label, control in (("stage1", False), ("stage2", True)):
+        def argv_for(chunk, label=label, control=control):
+            text = (f"max_num_iterations: {GRAPH_STEPS}\nnum_random: 1000\nsteps_per_log: {GRAPH_CHUNK}\n"
+                    f"steps_per_save: 0\nsteps_per_eval_image: 0\nsteps_per_eval_all_images: 0\nvis: jsonl\n"
+                    f"output_dir: {tmp / f'graphs_{label}_{chunk}'}\nscan_chunk: {chunk}\n"
+                    f"pipeline:\n  model:\n    isect_capacity: {6 * n}\n")
+            over = tmp / f"graphs_{label}_{chunk}.yaml"
+            if not control:
+                refine_at = model.step + GRAPH_REFINE_AT
+                text += f"    refine_start: {refine_at}\n    refine_every: {GRAPH_REFINE_AT}\n"
+                return ["train", *base, "--scene-config", str(_write(over, text)), "--load", str(ckpt)]
+            return ["train-control", "--data", str(data), "--config", str(HERE / "configs/control/sim/base.yaml"),
+                    "--scene-config", str(_write(over, text)), "--stage1-checkpoint", str(ckpt),
+                    "--gaussian-mask", str(mask), "--deform-impl", STAGE2_IMPL, "--capacity", str(VERB_CAPACITY),
+                    "--device", DEVICE]
+
+        # `scan_chunk` 0 and GRAPH_CHUNK from one seed: the same initial state and frames
+        eager, graphed = (cli._build_trainer(cli.build_parser().parse_args(argv_for(chunk)), control)
+                          for chunk in (0, GRAPH_CHUNK))
+        eager.train(GRAPH_STEPS)
+        torch.cuda.synchronize()
+        zero_launches()
+        graphed.train(GRAPH_STEPS)
+        torch.cuda.synchronize()
+        replayed = dict(graphed.graph_stats["replayed_launches"])
+        counts = {k: v + replayed.get(k, 0) for k, v in launches().items()}
+        print(f"graphs {label} launches: eager warm-up steps {json.dumps(launches())}, replays "
+              f"{graphed.graph_stats['replays']} adding {json.dumps(replayed)} ({card})")
+        want = ("rasterize_fwd", "rasterize_bwd") + (("field_fwd", "field_bwd") if control else ("deform_fwd", "deform_bwd"))
+        stats = graphed.graph_stats
+        # each graph's first step is its eager warm-up, every other step a replay
+        if graphed.device.type == "cuda" and not (
+            all(counts[k] > 0 and replayed.get(k, 0) > 0 for k in want)
+            and stats["captures"] >= 1 and stats["replays"] + stats["captures"] == GRAPH_STEPS
+        ):
+            raise AssertionError(f"graphs {label}: launches {counts}, replayed {replayed}, {stats}")
+        for k, v in counts.items():
+            launch_total[k] += v
+        out[label] = {"check": _hold_graphed(label, eager, graphed, card),
+                      "time": _time_graphed(label, eager, graphed, GRAPH_STEPS, card)}
+        del eager, graphed
+    out["launches"] = launch_total
+    return out
+
+
+def _write(path: Path, text: str) -> Path:
+    path.write_text(text)
+    return path
+
+
 def trunk_bound(n: int, in_ch: int, save: bool, backward: bool):
     """Least time (ms) the card could take for one call of the trunk on a
     precomputed embedding, and what sets it: `field_bound`'s operations
@@ -3402,8 +3688,10 @@ def main():
         phase_bands(model, card)
         t_bands = time.perf_counter()
         parallel = phase_parallel(model, ckpt)
-        print(f"phases 21-23: extras {t_extras - t_new:.1f} s, bands {t_bands - t_extras:.1f} s, "
-              f"parallel {time.perf_counter() - t_bands:.1f} s")
+        t_parallel = time.perf_counter()
+        graphs = phase_graphs(Path(tmp), data, model, card)
+        print(f"phases 21-24: extras {t_extras - t_new:.1f} s, bands {t_bands - t_extras:.1f} s, "
+              f"parallel {t_parallel - t_bands:.1f} s, graphs {time.perf_counter() - t_parallel:.1f} s")
     print(
         f"train verb median step {verb['median_step_ms']:.2f} ms against phase 7's bare step "
         f"{train['median_step_ms']:.2f} ms in this run ({verb['median_step_ms'] / train['median_step_ms']:.2f}x); "
@@ -3444,9 +3732,10 @@ def main():
         records.append(record(name, "deform_field.cu", f"freegaussian_tpu/ops/mlp_pallas.py:{line}",
                               trunk["launches"][name], trunk[mode]["max_abs_err"], trunk[mode]))
     assert [r["name"] for r in records] == list(launches())
-    # phase 19's verbs (rows 1, 6 and 8, the 5 control steps' backwards); phases 20, 21 and 23's (rows 1, 2, 8, 9)
+    # phase 19's verbs (rows 1, 6 and 8, the 5 control steps' backwards); phases 20, 21 and 23's (rows 1, 2, 8, 9);
+    # phase 24's graphed chunks (rows 1, 2, 8, 9 in stage 1, 1, 2, 6, 7 in stage 2; replays included)
     for r in records:
-        r["launches"] += sum(run["launches"][r["name"]] for run in (pipeline, captures, extras, parallel))
+        r["launches"] += sum(run["launches"][r["name"]] for run in (pipeline, captures, extras, parallel, graphs))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(

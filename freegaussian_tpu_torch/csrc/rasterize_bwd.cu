@@ -66,7 +66,9 @@
 // launch with one thread per output element, adds the Q partials in
 // quadrant order, then takes d opacity = -sum / op and the absgrad |sum| of
 // the means2d terms after the whole kernel tile's sum, and writes every
-// row. No atomics: two calls give the same bits.
+// row. A padding slot of a capacity-bounded binning (gauss_ids >= N, past
+// every tile's range, so never walked) gets a zero row without a read of
+// its scratch or of opacities. No atomics: two calls give the same bits.
 //
 // Plain C interface (loaded with ctypes); launches on the caller's stream,
 // allocates nothing, and returns cudaGetLastError().
@@ -300,12 +302,13 @@ rasterize_bwd_walk(const float* __restrict__ means2d,    // (N, 2)
     }
 }
 
-// rows[i][d] from the Q quadrant partials of slot i, added in quadrant order.
+// rows[i][d] from the Q quadrant partials of slot i, added in quadrant order;
+// zeros for a padding slot (gauss_ids[i] >= num_gauss).
 __global__ void __launch_bounds__(kCombineThreads)
 rasterize_bwd_combine(const float* __restrict__ scratch,     // (Q, I, 6 + C)
                       const float* __restrict__ opacities,   // (N,)
                       const int32_t* __restrict__ gauss_ids, // (I,)
-                      int C, int Q, int num_isects,
+                      int C, int Q, int num_isects, int num_gauss,
                       float* __restrict__ out_rows)          // (I, 8 + C)
 {
     const int D = kHead + C;
@@ -314,12 +317,17 @@ rasterize_bwd_combine(const float* __restrict__ scratch,     // (Q, I, 6 + C)
     if (o >= (size_t)num_isects * D) return;
     const int i = (int)(o / D);
     const int d = (int)(o - (size_t)i * D);
+    const int g = gauss_ids[i];
+    if (g < 0 || g >= num_gauss) {
+        out_rows[o] = 0.0f;
+        return;
+    }
     const int j = d < 6 ? d : (d < kHead ? d - 6 : d - 2);
     float s = 0.0f;
     for (int q = 0; q < Q; ++q) s += scratch[((size_t)q * num_isects + i) * J + j];
     float val = s;
     if (d == 5) {
-        const float op = opacities[gauss_ids[i]];
+        const float op = opacities[g];
         val = (op > 0.0f && s != 0.0f) ? -s / op : 0.0f;
     } else if (d == 6 || d == 7) {
         val = fabsf(s);  // after the whole kernel tile's sum
@@ -331,9 +339,10 @@ template <bool FWD>
 int launch(const void* means2d, const void* conics, const void* opacities, const void* colors, const void* radii,
            const void* gauss_ids, const void* tile_offsets, const void* g_color, const void* g_alpha,
            const void* livecnt, const void* t_final, const void* r_total, int C, int width, int height,
-           int tile_size, int tiles_w, int tiles_h, int gate, int num_isects, void* out_rows, void* scratch,
-           int parts, void* stream) {
-    if (C < 1 || C > kMaxChannels || num_isects < 0 || parts < 1 || parts > 3) return (int)cudaErrorInvalidValue;
+           int tile_size, int tiles_w, int tiles_h, int gate, int num_isects, int num_gauss, void* out_rows,
+           void* scratch, int parts, void* stream) {
+    if (C < 1 || C > kMaxChannels || num_isects < 0 || num_gauss < 0 || parts < 1 || parts > 3)
+        return (int)cudaErrorInvalidValue;
     if (tile_size != 16 && tile_size != 32) return (int)cudaErrorInvalidValue;
     const int num_tiles = tiles_w * tiles_h;
     const int Q = (tile_size / kQuad) * (tile_size / kQuad);
@@ -356,7 +365,7 @@ int launch(const void* means2d, const void* conics, const void* opacities, const
     if ((parts & 2) && elements > 0) {
         const unsigned blocks = (unsigned)((elements + kCombineThreads - 1) / kCombineThreads);
         rasterize_bwd_combine<<<blocks, kCombineThreads, 0, s>>>(
-            (const float*)scratch, (const float*)opacities, (const int32_t*)gauss_ids, C, Q, num_isects,
+            (const float*)scratch, (const float*)opacities, (const int32_t*)gauss_ids, C, Q, num_isects, num_gauss,
             (float*)out_rows);
     }
     return (int)cudaGetLastError();
@@ -365,17 +374,18 @@ int launch(const void* means2d, const void* conics, const void* opacities, const
 }  // namespace
 
 // The reverse walk, from the forward's t_final. scratch: (Q, I, 6 + C) f32,
-// Q = (tile_size / 16)^2. parts: 1 the quadrant walk (into scratch), 2 the
-// combine (scratch into out_rows), 3 both.
+// Q = (tile_size / 16)^2. num_gauss: N, the padding id of gauss_ids. parts:
+// 1 the quadrant walk (into scratch), 2 the combine (scratch into out_rows),
+// 3 both.
 extern "C" int rasterize_bwd(const void* means2d, const void* conics, const void* opacities,
                              const void* colors, const void* radii, const void* gauss_ids,
                              const void* tile_offsets, const void* g_color, const void* g_alpha,
                              const void* livecnt, const void* t_final, int C, int width, int height,
-                             int tile_size, int tiles_w, int tiles_h, int gate, int num_isects,
+                             int tile_size, int tiles_w, int tiles_h, int gate, int num_isects, int num_gauss,
                              void* out_rows, void* scratch, int parts, void* stream) {
     return launch<false>(means2d, conics, opacities, colors, radii, gauss_ids, tile_offsets, g_color, g_alpha,
                          livecnt, t_final, nullptr, C, width, height, tile_size, tiles_w, tiles_h, gate, num_isects,
-                         out_rows, scratch, parts, stream);
+                         num_gauss, out_rows, scratch, parts, stream);
 }
 
 // The forward walk, from the per-pixel totals r_total (H, W).
@@ -383,11 +393,11 @@ extern "C" int rasterize_bwd_fwd(const void* means2d, const void* conics, const 
                                  const void* colors, const void* radii, const void* gauss_ids,
                                  const void* tile_offsets, const void* g_color, const void* g_alpha,
                                  const void* livecnt, const void* r_total, int C, int width, int height,
-                                 int tile_size, int tiles_w, int tiles_h, int gate, int num_isects,
+                                 int tile_size, int tiles_w, int tiles_h, int gate, int num_isects, int num_gauss,
                                  void* out_rows, void* scratch, int parts, void* stream) {
     return launch<true>(means2d, conics, opacities, colors, radii, gauss_ids, tile_offsets, g_color, g_alpha,
                         livecnt, nullptr, r_total, C, width, height, tile_size, tiles_w, tiles_h, gate, num_isects,
-                        out_rows, scratch, parts, stream);
+                        num_gauss, out_rows, scratch, parts, stream);
 }
 
 extern "C" const char* rasterize_bwd_error_string(int code) {

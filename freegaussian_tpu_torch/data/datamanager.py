@@ -15,7 +15,10 @@ Behaviour of the reference's FreeGaussianImageDatamanager
   - a frame with a Brown distortion is undistorted with its foreground
     mask, paired-frame depth, flow and articulation masks, and cropped to
     the valid rectangle (`undistort_frame`, on the datamanager's device;
-    OpenCV's arithmetic, `data/undistort.py`).
+    OpenCV's arithmetic, `data/undistort.py`);
+  - `DeviceArena`: every frame's camera and batch stacked on the device
+    (the JAX trainer's `_device_dataset` arena), from which a step selects
+    its frame with a device index.
 """
 
 from __future__ import annotations
@@ -138,6 +141,55 @@ def undistort_frame(
     new_k[0, 2] += 0.5
     new_k[1, 2] += 0.5
     return new_k.astype(np.float32), image, mask, depth, flow, atrb_mask
+
+
+_CAMERA_FIELDS = ("c2w", "fx", "fy", "cx", "cy", "time")
+
+
+def _stack_cameras(cams: List[Camera]) -> Dict[str, torch.Tensor]:
+    return {k: torch.stack([getattr(c, k) for c in cams]) for k in _CAMERA_FIELDS}
+
+
+@dataclasses.dataclass
+class DeviceArena:
+    """Frames stacked on the device: the camera fields (F, ...), the paired
+    cameras' when the flow losses need them, and each batch key (F, ...).
+    Built by the trainer from the frames as its per-step path prepares them
+    (one downscale phase; zero-filled flow and depth with their validity
+    gates, an all-ones mask where any frame has a mask), so a frame selected
+    here holds the same values as the per-step path's."""
+
+    cameras: Dict[str, torch.Tensor]
+    cameras0: Optional[Dict[str, torch.Tensor]]
+    batch: Dict[str, torch.Tensor]
+    width: int
+    height: int
+
+    @classmethod
+    def stack(cls, cams: List[Camera], cams0: Optional[List[Camera]], batches: List[Dict[str, torch.Tensor]]):
+        if len({(c.width, c.height) for c in cams}) != 1:
+            raise ValueError("the device arena needs frames of one size")
+        keys = batches[0].keys()
+        if any(b.keys() != keys for b in batches):
+            raise ValueError("every frame of the device arena needs the same batch keys")
+        return cls(
+            cameras=_stack_cameras(cams),
+            cameras0=_stack_cameras(cams0) if cams0 is not None else None,
+            batch={k: torch.stack([b[k] for b in batches]) for k in keys},
+            width=cams[0].width,
+            height=cams[0].height,
+        )
+
+    def select(self, idx: torch.Tensor) -> Tuple[Camera, Optional[Camera], Dict[str, torch.Tensor]]:
+        """(camera, camera0 or None, batch) of frame `idx`, a (1,) int64
+        device tensor, selected on the device (no host synchronisation)."""
+        pick = lambda t: t.index_select(0, idx)[0]
+        cam = lambda f: Camera(**{k: pick(v) for k, v in f.items()}, width=self.width, height=self.height)
+        return (
+            cam(self.cameras),
+            cam(self.cameras0) if self.cameras0 is not None else None,
+            {k: pick(v) for k, v in self.batch.items()},
+        )
 
 
 @dataclasses.dataclass

@@ -24,7 +24,7 @@ from ..data.cameras import Camera
 from ..models.control_model import control_forward
 from ..models.splat_model import SplatConfig, loss_fn, psnr
 from .optimizers import Adam, apply_group_updates
-from .train_step import GAUSSIAN_GROUPS, TrainState, draw_background, params_by_group
+from .train_step import GAUSSIAN_GROUPS, TrainState, draw_background, params_by_group, state_metrics
 
 
 def make_control_train_step(
@@ -36,26 +36,30 @@ def make_control_train_step(
     train_gaussians: bool = True,
 ):
     """Build the step. Returns step_fn(state, camera, batch, sh_degree_now,
-    draws=None) -> (state, metrics), with the JAX step's metric keys."""
+    draws=None) -> (state, metrics), with the JAX step's metric keys. As in
+    the stage-1 step (`train_step.make_train_step`), `step_fn.core(state,
+    camera, batch, sh_degree_now, draws, scalars=None)` is the part a CUDA
+    graph replays (every write in place, Adam's scalars from `scalars` when
+    given) and `step_fn.groups(state)` the groups `state_metrics` checks;
+    stage 2 has no refinement. The init time lives on the mask's device, so
+    the step copies nothing from the host."""
+    init_t = torch.as_tensor(init_time, dtype=torch.float32).to(gaussian_mask.device)
 
-    def step_fn(
-        state: TrainState,
-        camera: Camera,
-        batch: Dict[str, torch.Tensor],
-        sh_degree_now: int,
-        draws: Optional[Dict[str, Any]] = None,
-    ):
+    def groups_of(state):
+        return params_by_group(state.params, None, state.control)
+
+    def core(state, camera, batch, sh_degree_now, draws, scalars=None):
         params, alive = state.params, state.alive
         dev = alive.device
         bg = draw_background(splat_cfg, dev, state.generator, draws or {})
         outputs = control_forward(
             splat_cfg, params, alive, gaussian_mask, camera, state.control,
-            deform=state.deform, init_time=init_time, sh_degree_now=sh_degree_now, train=True, background=bg,
+            deform=state.deform, init_time=init_t, sh_degree_now=sh_degree_now, train=True, background=bg,
         )
         losses = loss_fn(splat_cfg, outputs, batch, params, alive)
         total = losses["main_loss"] + losses["scale_reg"]
 
-        groups = params_by_group(params, None, state.control)
+        groups = groups_of(state)
         if not train_gaussians:
             groups = {"control": groups["control"]}
         names = [(g, k) for g, ps in groups.items() for k in ps]
@@ -66,23 +70,28 @@ def make_control_train_step(
                 # dead slots must not move
                 grad = torch.where(alive.reshape((-1,) + (1,) * (grad.ndim - 1)), grad, torch.zeros_like(grad))
             grads_by_group[g][k] = grad
-        apply_group_updates(optimizers, state.opt_states, groups, grads_by_group)
-
+        apply_group_updates(optimizers, state.opt_states, groups, grads_by_group, scalars)
         with torch.no_grad():
-            # a NaN state renders as background with a finite loss: check the parameters
-            finite = torch.ones((), dtype=torch.bool, device=dev)
-            for ps in params_by_group(params, None, state.control).values():
-                for v in ps.values():
-                    finite &= torch.isfinite(v).all()
-            metrics = {
-                "params_finite": finite,
+            return {
                 "loss": total.detach(),
                 "main_loss": losses["main_loss"].detach(),
                 "psnr": psnr(outputs["rgb"].detach(), batch["image"][..., :3]),
-                "gaussian_count": alive.sum(),
-                "num_isects": outputs["num_isects"],
+                "num_isects": torch.as_tensor(outputs["num_isects"], device=dev),
             }
+
+    def step_fn(
+        state: TrainState,
+        camera: Camera,
+        batch: Dict[str, torch.Tensor],
+        sh_degree_now: int,
+        draws: Optional[Dict[str, Any]] = None,
+    ):
+        metrics = core(state, camera, batch, sh_degree_now, draws)
+        with torch.no_grad():
+            metrics.update(state_metrics(state, groups_of(state)))
         state.step += 1
         return state, metrics
 
+    step_fn.core = core
+    step_fn.groups = groups_of
     return step_fn

@@ -3,7 +3,9 @@
 mask `gaussian_mask_NxM.npy`, takes the first train camera's time as the
 init time (freegaussian_pipeline.py:41-50), and trains the control field and
 the Gaussian groups (no deform group, no densification) under the stage-1
-trainer's cadence loop.
+trainer's cadence loop, its `scan_chunk` chunks (the stage-2 step as the
+chunk runner's step, one graph per phase: stage 2 has no step variants)
+and its capacity tuner.
 """
 
 from __future__ import annotations
@@ -64,6 +66,20 @@ class ControlTrainer(Trainer):
             super()._rebuild_step_fn()
             return
         self.control_step_fn = make_control_train_step(self.config.splat, self.optimizers, self.gaussian_mask, self.init_time)
+        self._runners = {}
+
+    def _step_variant(self, step: int) -> tuple:
+        return ()
+
+    def _step_core(self, camera, camera0, batch, sh_deg: int, frame, variant: tuple, scalars):
+        del camera0, frame, variant  # stage 2 has no flow supervision and no per-camera state
+        return self.control_step_fn.core(self.state, camera, batch, sh_deg, {}, scalars)
+
+    def _metric_groups(self):
+        return self.control_step_fn.groups(self.state)
+
+    def _refine_at(self, step: int, last_size):
+        return None  # stage 2 has no densification
 
     def _dispatch_step(self, i, idx, camera, batch):
         """One stage-2 step under the shared cadence loop."""

@@ -12,16 +12,25 @@ operation for operation:
 with the schedule read at the count before the increment, as optax's
 `scale_by_schedule` reads it. A group's parameters are a dict of tensors
 (one entry for a Gaussian group, one per weight for the deform field); the
-update runs in place under `torch.no_grad` (the JAX package returns new
-arrays). `count` is per group and is not touched when moment rows are
-zeroed (densification), as in optax.
+update runs in place under `torch.no_grad`, parameters and moments alike
+(the JAX package returns new arrays), so a CUDA graph of a step reads and
+writes the same tensors on every replay. `count` is per group and is not
+touched when moment rows are zeroed (densification), as in optax.
+
+The step's scalars, -lr(count - 1), 1 / (1 - b1^count) and
+1 / (1 - b2^count), are f32 values computed on the host (`adam_scalars`).
+The eager update applies them as Python scalars; a CUDA graph, in which a
+Python scalar would be a constant, reads the same f32 values from a device
+table row (`scalars`), and both multiply by them, so the two updates agree
+bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..ops.math import exponential_decay_schedule
@@ -111,30 +120,52 @@ def init_opt_states(optimizers: Dict[str, Adam], params_by_group: Dict[str, Dict
     return {name: init_adam_state(p) for name, p in params_by_group.items() if name in optimizers}
 
 
+def adam_scalars(opt: Adam, count: int) -> Tuple[float, float, float]:
+    """The update's scalars at the group's `count` (before the increment):
+    (-lr(count), 1 / (1 - b1^(count + 1)), 1 / (1 - b2^(count + 1))), each
+    an f32 value: the schedule's own f32 rate, the bias corrections in
+    Python doubles rounded to f32 and then inverted in f32."""
+    f32 = np.float32
+    count1 = count + 1
+    bc1 = f32(1 - opt.b1**count1)
+    bc2 = f32(1 - opt.b2**count1)
+    return float(-f32(float(opt.rate(count)))), float(f32(1) / bc1), float(f32(1) / bc2)
+
+
 @torch.no_grad()
 def adam_update(
-    opt: Adam, state: AdamState, params: Dict[str, torch.Tensor], grads: Dict[str, Optional[torch.Tensor]]
+    opt: Adam,
+    state: AdamState,
+    params: Dict[str, torch.Tensor],
+    grads: Dict[str, Optional[torch.Tensor]],
+    scalars: Optional[torch.Tensor] = None,
 ) -> None:
     """One Adam step of a group, in place on `params` and `state`. A missing
-    gradient (None) counts as zeros, as JAX's gradient of an unused input."""
-    lr = opt.rate(state.count)
-    count = state.count + 1
-    bc1 = 1 - opt.b1**count
-    bc2 = 1 - opt.b2**count
+    gradient (None) counts as zeros, as JAX's gradient of an unused input.
+    `scalars`: a (3,) f32 device row holding `adam_scalars(opt,
+    state.count)`, read in place of the host's (a CUDA graph's table)."""
+    if scalars is None:
+        neg_lr, inv_bc1, inv_bc2 = adam_scalars(opt, state.count)
+    else:
+        neg_lr, inv_bc1, inv_bc2 = scalars[0], scalars[1], scalars[2]
     for k, p in params.items():
         g = grads.get(k)
         if g is None:
             g = torch.zeros_like(p)
-        mu = (1 - opt.b1) * g + opt.b1 * state.mu[k]
-        nu = (1 - opt.b2) * (g * g) + opt.b2 * state.nu[k]
-        update = (mu / bc1) / (torch.sqrt(nu / bc2) + opt.eps)
-        p.add_(-lr * update)
-        state.mu[k] = mu
-        state.nu[k] = nu
-    state.count = count
+        mu, nu = state.mu[k], state.nu[k]
+        mu.mul_(opt.b1).add_(g * (1 - opt.b1))
+        nu.mul_(opt.b2).add_((g * g) * (1 - opt.b2))
+        update = (mu * inv_bc1) / (torch.sqrt(nu * inv_bc2) + opt.eps)
+        p.add_(update * neg_lr)
+    state.count += 1
 
 
-def apply_group_updates(optimizers, opt_states, params_by_group, grads_by_group) -> None:
-    """Adam on every group of `params_by_group`, in place."""
+def apply_group_updates(optimizers, opt_states, params_by_group, grads_by_group, scalars=None) -> None:
+    """Adam on every group of `params_by_group`, in place. `scalars`: each
+    group's (3,) device row of `adam_scalars` (a CUDA graph's table), by
+    group name."""
     for name, params in params_by_group.items():
-        adam_update(optimizers[name], opt_states[name], params, grads_by_group[name])
+        adam_update(
+            optimizers[name], opt_states[name], params, grads_by_group[name],
+            None if scalars is None else scalars[name],
+        )

@@ -7,7 +7,9 @@ densification.
     state, metrics = step_fn(state, camera, batch, sh_degree_now, camera0=...)
 
 PyTorch runs eagerly, so the step updates `state` in place and returns it
-(the JAX package returns a new state). Randomness (the random background,
+(the JAX package returns a new state): every tensor of the state keeps its
+storage from step to step, which is what lets the chunked trainer replay
+the step as a CUDA graph (`engine/trainer.py`). Randomness (the random background,
 the split samples) comes from `state.generator`; a caller may pass the
 draws instead (`draws={"background": (3,), "split_eps": (eps1, eps2)}`),
 which is how the parity tests hand both packages the same numbers. The
@@ -120,6 +122,18 @@ def draw_background(
     return torch.rand(3, generator=generator, device=generator.device).to(device)
 
 
+def state_metrics(state: TrainState, groups) -> Dict[str, torch.Tensor]:
+    """The metrics read off the state after the step (and its refinement):
+    params_finite and gaussian_count. A NaN state renders as pure background
+    with a finite loss (NaN projections cull to radii 0), so the parameters
+    themselves are checked."""
+    finite = torch.ones((), dtype=torch.bool, device=state.alive.device)
+    for ps in groups.values():
+        for v in ps.values():
+            finite &= torch.isfinite(v).all()
+    return {"params_finite": finite, "gaussian_count": state.alive.sum()}
+
+
 def make_train_step(
     splat_cfg: SplatConfig,
     densify_cfg: DensifyConfig,
@@ -135,25 +149,37 @@ def make_train_step(
     "off") the state's `camera_opt` row `cam_idx` adjusts the camera before
     the forward; with `use_bilateral_grid` the state's grid `cam_idx`
     corrects the rendered image. Each adds its regularizer to the loss and
-    its Adam group, and is skipped when the state does not carry it."""
+    its Adam group, and is skipped when the state does not carry it.
+
+    The step is three parts, which `step_fn` runs in order and the chunked
+    trainer (`engine/trainer.py`) runs as a CUDA graph and an eager tail:
+      - `step_fn.core(state, camera, batch, sh_degree_now, camera0, draws,
+        cam_idx, warmed_up=, apply_scale_reg=, scalars=None)`: forward,
+        loss, backward, Adam and the absgrad statistics, every write in
+        place; returns the loss metrics. Its host-side inputs are the two
+        flags, which the graph burns in (one graph per variant), and Adam's
+        scalars, which a graph reads from `scalars`, a device row per group
+        (`optimizers.adam_scalars`). `cam_idx` may be a (1,) device tensor.
+      - `step_fn.refine(state, step, last_size, draws)`: the refinement at
+        its cadence steps (eager: it reads counts on the host), writing the
+        parameters, alive mask, moments and statistics in place; returns the
+        refine metrics or None.
+      - `step_fn.groups(state)`: the parameter groups `state_metrics`
+        checks."""
     train_camera_opt = train_camera_opt or splat_cfg.camera_optimizer_mode != "off"
     use_bilagrid = splat_cfg.use_bilateral_grid
     use_flow = splat_cfg.flow_loss_weight > 0 or splat_cfg.flow_3d_loss_weight > 0
 
-    def step_fn(
-        state: TrainState,
-        camera: Camera,
-        batch: Dict[str, torch.Tensor],
-        sh_degree_now: int,
-        camera0: Optional[Camera] = None,
-        draws: Optional[Dict[str, Any]] = None,
-        cam_idx: int = 0,
-    ):
-        draws = draws or {}
+    def groups_of(state):
+        """The groups whose finiteness `state_metrics` checks: the Gaussians
+        and the trained deform field."""
+        return params_by_group(state.params, state.deform if train_deform else None)
+
+    def core(state, camera, batch, sh_degree_now, camera0, draws, cam_idx, *, warmed_up, apply_scale_reg,
+             scalars=None):
         params, alive = state.params, state.alive
         dev = alive.device
         capacity = alive.shape[0]
-        warmed_up = state.step >= splat_cfg.warm_up
         last_size = (camera.height, camera.width)
         flow_active = use_flow and camera0 is not None and "flow" in batch
         deform = state.deform if train_deform else None
@@ -171,7 +197,7 @@ def make_train_step(
             render_flow=flow_active and splat_cfg.flow_loss_weight > 0,
             bilagrid=grids, image_idx=cam_idx,
         )
-        losses = loss_fn(splat_cfg, outputs, batch, params, alive, apply_scale_reg=(state.step % 10 == 0))
+        losses = loss_fn(splat_cfg, outputs, batch, params, alive, apply_scale_reg=apply_scale_reg)
         total = losses["main_loss"] + losses["scale_reg"]
         if flow_active:
             # flow_valid / depth0_valid: 0/1 gates for frames lacking flow or depth
@@ -209,53 +235,68 @@ def make_train_step(
                 # dead slots must not move
                 grad = torch.where(alive.reshape((-1,) + (1,) * (grad.ndim - 1)), grad, torch.zeros_like(grad))
             grads_by_group[g][k] = grad
-        apply_group_updates(optimizers, state.opt_states, groups, grads_by_group)
+        apply_group_updates(optimizers, state.opt_states, groups, grads_by_group, scalars)
 
         # densification bookkeeping (the reference's AFTER_TRAIN_ITERATION callbacks)
         with torch.no_grad():
-            dstate = update_stats(state.densify, outputs["radii"], absgrad.detach(), last_size)
-            refine_info = None
-            if state.step >= densify_cfg.refine_start and state.step % densify_cfg.refine_every == 0:
-                new_params, new_alive, dstate, refine_info = refine(
-                    densify_cfg, params, alive, dstate, state.step, last_size, num_train_data,
-                    generator=state.generator, split_eps=draws.get("split_eps"),
-                )
-                for k in GAUSSIAN_GROUPS:
-                    params[k].copy_(new_params[k])
-                    zero_moment_rows(state.opt_states[k], refine_info["moment_zero_mask"], params[k])
-                alive = new_alive
-                if refine_info["reset_opacity_moments"]:
-                    st = state.opt_states["opacities"]
-                    st.mu = {k: torch.zeros_like(v) for k, v in st.mu.items()}
-                    st.nu = {k: torch.zeros_like(v) for k, v in st.nu.items()}
-
-            # a NaN state renders as pure background with a finite loss (NaN
-            # projections cull to radii 0), so check the parameters themselves
-            finite = torch.ones((), dtype=torch.bool, device=dev)
-            for ps in params_by_group(params, deform).values():
-                for v in ps.values():
-                    finite &= torch.isfinite(v).all()
+            update_stats(state.densify, outputs["radii"], absgrad.detach(), last_size)
             metrics = {
-                "params_finite": finite,
                 "loss": total.detach(),
                 "main_loss": losses["main_loss"].detach(),
                 "l1": losses["l1"].detach(),
                 "ssim": losses["ssim"].detach(),
                 "psnr": psnr(outputs["rgb"].detach(), batch["image"][..., :3]),
-                "gaussian_count": alive.sum(),
-                "num_isects": outputs["num_isects"],
+                "num_isects": torch.as_tensor(outputs["num_isects"], device=dev),
             }
             for extra_key in ("flow_2d", "flow_3d"):
                 if extra_key in losses:
                     metrics[extra_key] = losses[extra_key].detach()
-            if refine_info is not None:
-                metrics["refine"] = {
-                    k: refine_info[k] for k in ("num_split", "num_dup", "num_culled", "num_alive")
-                }
+        return metrics
 
-        state.alive = alive
-        state.densify = dstate
+    @torch.no_grad()
+    def refine_at(state, step: int, last_size, draws):
+        if not (step >= densify_cfg.refine_start and step % densify_cfg.refine_every == 0):
+            return None
+        params = state.params
+        new_params, new_alive, _, refine_info = refine(
+            densify_cfg, params, state.alive, state.densify, step, last_size, num_train_data,
+            generator=state.generator, split_eps=draws.get("split_eps"),
+        )
+        for k in GAUSSIAN_GROUPS:
+            params[k].copy_(new_params[k])
+            zero_moment_rows(state.opt_states[k], refine_info["moment_zero_mask"], params[k])
+        state.alive.copy_(new_alive)
+        state.densify.reset_()
+        if refine_info["reset_opacity_moments"]:
+            st = state.opt_states["opacities"]
+            for moments in (st.mu, st.nu):
+                for v in moments.values():
+                    v.zero_()
+        return {k: refine_info[k] for k in ("num_split", "num_dup", "num_culled", "num_alive")}
+
+    def step_fn(
+        state: TrainState,
+        camera: Camera,
+        batch: Dict[str, torch.Tensor],
+        sh_degree_now: int,
+        camera0: Optional[Camera] = None,
+        draws: Optional[Dict[str, Any]] = None,
+        cam_idx: int = 0,
+    ):
+        draws = draws or {}
+        metrics = core(
+            state, camera, batch, sh_degree_now, camera0, draws, cam_idx,
+            warmed_up=state.step >= splat_cfg.warm_up, apply_scale_reg=state.step % 10 == 0,
+        )
+        refined = refine_at(state, state.step, (camera.height, camera.width), draws)
+        with torch.no_grad():
+            metrics.update(state_metrics(state, groups_of(state)))
+        if refined is not None:
+            metrics["refine"] = refined
         state.step += 1
         return state, metrics
 
+    step_fn.core = core
+    step_fn.refine = refine_at
+    step_fn.groups = groups_of
     return step_fn

@@ -6,26 +6,35 @@ eval / save / log cadences), checkpoints and metric logging
 (`metrics.jsonl`: psnr, loss, gaussian_count, steps_per_sec, the fields the
 reference instruments, freegaussian_pipeline.py:128-156).
 
-PyTorch runs eagerly: the step (`engine/train_step.py`) updates the state in
-place. Left out, as TPU machinery: the intersection-capacity self-tuner (the
-port's binning is exact-size), the `scan_chunk` dispatch with its device
-dataset, and the stacked eval arena (eval renders frame by frame).
+The step (`engine/train_step.py`) updates the state in place. As in the JAX
+package, the binning is capacity-bounded: the capacity starts at
+`isect_capacity_factor` slots per live Gaussian and the self-tuner
+(`_maybe_grow_isect_capacity`) doubles it near overflow and shrinks it after
+a stretch of low readings. With `scan_chunk` > 1 training runs in chunks of
+up to that many steps over a device arena of the frames (the JAX package's
+`_train_scan`, which runs a chunk as one `lax.scan` dispatch): on the card
+each chunk is CUDA-graph replays of the step (`_ChunkRunner`: one graph per
+downscale phase, SH degree, capacity and step variant, captured after an
+eager warm-up step, with no host synchronisation inside the chunk), on the
+CPU the same steps run eagerly. Left out: the stacked eval arena (eval
+renders frame by frame).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import time
 import warnings
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..data.cameras import Camera
-from ..data.datamanager import FullImageDatamanager
+from ..data.datamanager import DeviceArena, FullImageDatamanager
 from ..data.dataparsers import PARSERS, ParsedDataset
 from ..models.bilagrid import init_bilateral_grids
 from ..models.camera_opt import init_camera_opt
@@ -33,10 +42,19 @@ from ..models.densify import DensifyConfig
 from ..models.gaussians import init_gaussians
 from ..models.splat_model import SplatConfig, forward, make_control_field, make_deform_field, psnr, sh_degree_to_use
 from ..models.ssim import ssim
+from ..ops import mlp_cuda, rasterize_cuda
 from ..ops.math import resize_image
 from .checkpoints import load_checkpoint, save_checkpoint
-from .optimizers import OptimizersConfig, make_optimizers
-from .train_step import create_train_state, make_train_step
+from .optimizers import OptimizersConfig, adam_scalars, make_optimizers
+from .train_step import create_train_state, make_train_step, state_metrics
+
+# Per-slot bytes of the buffers a training step sizes by the binning's
+# capacity, counted at the most channels the compositor takes (8): the
+# binning's int64 slot arrays, sort keys and permutation (~128), the
+# backward's rows (4 (8 + 8)) and the reduction's sorted rows, its f64
+# transpose, prefix sum and padded copy (4 (8 + 8) + 3 x 8 (8 + 8)); the
+# backward's per-quadrant scratch (4 (6 + 8) a quadrant) comes on top.
+ISECT_SLOT_BYTES = 128 + 2 * 4 * 16 + 3 * 8 * 16
 
 
 @dataclasses.dataclass
@@ -62,6 +80,15 @@ class TrainerConfig:
     """metric sinks: "" (jsonl only), "tensorboard" (also event files, when
     the writer can be made), "viewer+tensorboard" (also the live HTTP viewer)"""
     viewer_port: int = 7007
+    scan_chunk: int = 0
+    """> 1: train in chunks of up to this many steps over a device arena of
+    the frames, with the per-step loop's frame order and step math. On the
+    card a chunk is CUDA-graph replays of the step with no host
+    synchronisation inside it; metrics come back once per chunk and are
+    logged at the steps_per_log cadence afterwards. Chunks break at the
+    downscale and SH-degree phase changes and at every eval and save cadence
+    point (the JAX package's `lax.scan` chunks, which pay one dispatch a
+    chunk)."""
     capacity: int = 1 << 19
     num_random: int = 50000
     """random-init Gaussian count when the dataset has no seed points"""
@@ -117,6 +144,16 @@ class Trainer:
             sh_degree=config.splat.sh_degree,
             device=dev,
         )
+        self._isect_shrinks = 0
+        self._isect_low_streak = 0
+        self._isect_recent: List[float] = []
+        self._isect_last_rebuild: Optional[int] = None
+        if config.splat.isect_capacity is None:
+            # size the binning off the live Gaussians, not the padded
+            # capacity; the self-tuner grows or shrinks it from there
+            cap0 = max(config.splat.isect_capacity_factor * max(int(alive.sum()), 1), 1 << 14)
+            config = dataclasses.replace(config, splat=dataclasses.replace(config.splat, isect_capacity=cap0))
+            self.config = config
         deform = make_deform_field(config.splat).reset_parameters(init_gen, config.splat.deform_head_init_scale)
         self.control = make_control_field(config.splat).reset_parameters(init_gen).to(dev)
         # SO3xR3 adjustments and bilateral grids, one per training image, when enabled
@@ -126,6 +163,8 @@ class Trainer:
         if config.splat.use_bilateral_grid:
             bilagrid = init_bilateral_grids(len(self.datamanager), device=dev)
         self.optimizers = make_optimizers(config.optimizers)
+        self._arenas: Dict[int, DeviceArena] = {}
+        self.graph_stats = {"captures": 0, "capture_s": 0.0, "replays": 0, "replayed_launches": {}}
         self.state = create_train_state(
             params, alive, deform.to(dev), self.optimizers, generator=self.generator,
             camera_opt=camera_opt, bilagrid=bilagrid,
@@ -147,10 +186,32 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _rebuild_step_fn(self) -> None:
-        """The stage-1 step; ControlTrainer builds its stage-2 step."""
+        """The stage-1 step; ControlTrainer builds its stage-2 step. Drops
+        the chunk runners: their graphs hold the old capacity's buffers."""
         self.step_fn = make_train_step(
             self.config.splat, self.config.densify, self.optimizers, num_train_data=len(self.datamanager)
         )
+        self._runners: Dict[tuple, "_ChunkRunner"] = {}
+
+    # the step as the chunk runner drives it; ControlTrainer overrides these
+    def _step_variant(self, step: int) -> tuple:
+        """The host-side flags of step `step`'s math (one graph each): the
+        warm-up gate and, where it applies, the scale regularization."""
+        splat = self.config.splat
+        return (step >= splat.warm_up, splat.use_scale_regularization and step % 10 == 0)
+
+    def _step_core(self, camera, camera0, batch, sh_deg: int, frame, variant: tuple, scalars):
+        warmed_up, scale_reg = variant
+        return self.step_fn.core(
+            self.state, camera, batch, sh_deg, camera0, {}, frame,
+            warmed_up=warmed_up, apply_scale_reg=scale_reg, scalars=scalars,
+        )
+
+    def _metric_groups(self):
+        return self.step_fn.groups(self.state)
+
+    def _refine_at(self, step: int, last_size):
+        return self.step_fn.refine(self.state, step, last_size, {})
 
     @torch.no_grad()
     def _render_rgb(self, camera: Camera) -> torch.Tensor:
@@ -227,24 +288,205 @@ class Trainer:
             camera0 = self.datamanager.camera0(idx)
             if d > 1:
                 camera0 = camera0.downscaled(d)
-            h, w = camera.height, camera.width
-            dev = self.device
-            if "flow" not in batch:
-                batch["flow"] = torch.zeros((h, w, 2), device=dev)
-                batch["flow_valid"] = torch.tensor(0.0, device=dev)
-            else:
-                batch["flow_valid"] = torch.tensor(1.0, device=dev)
-            if cfg.splat.flow_3d_loss_weight > 0:
-                if "depth0" not in batch:
-                    batch["depth0"] = torch.zeros((h, w, 1), device=dev)
-                    batch["depth0_valid"] = torch.tensor(0.0, device=dev)
-                else:
-                    batch["depth0_valid"] = torch.tensor(1.0, device=dev)
+            self._fill_flow_batch(batch, camera.height, camera.width)
         return self.step_fn(self.state, camera, batch, sh_degree_to_use(cfg.splat, i), camera0=camera0, cam_idx=idx)
+
+    def _fill_flow_batch(self, batch, h: int, w: int) -> None:
+        """Zero-fill a frame's missing flow (and, with the 3D flow loss,
+        depth0) and set their 0/1 validity gates, in place."""
+        dev = self.device
+        if "flow" not in batch:
+            batch["flow"] = torch.zeros((h, w, 2), device=dev)
+            batch["flow_valid"] = torch.tensor(0.0, device=dev)
+        else:
+            batch["flow_valid"] = torch.tensor(1.0, device=dev)
+        if self.config.splat.flow_3d_loss_weight > 0:
+            if "depth0" not in batch:
+                batch["depth0"] = torch.zeros((h, w, 1), device=dev)
+                batch["depth0_valid"] = torch.tensor(0.0, device=dev)
+            else:
+                batch["depth0_valid"] = torch.tensor(1.0, device=dev)
+
+    def _device_dataset(self, d: int) -> DeviceArena:
+        """Every frame at downscale d stacked on the device, with the
+        per-step path's batch policy (`_dispatch_step`): zero-filled flow and
+        depth with their gates when the flow losses are on (else no flow
+        keys), an all-ones mask where any frame has a mask, and none of the
+        keys the losses never read. Built once per downscale phase."""
+        cache = self._arenas
+        if d in cache:
+            return cache[d]
+        cfg = self.config
+        use_flow = cfg.splat.flow_loss_weight > 0 or cfg.splat.flow_3d_loss_weight > 0
+        dm = self.datamanager
+        any_mask = any(f.mask is not None for f in dm.frames)
+        cams, cams0, batches = [], [], []
+        for idx in range(len(dm)):
+            camera, batch = self._downscale_batch(*dm.get_batch(idx), d)
+            h, w = camera.height, camera.width
+            if use_flow:
+                self._fill_flow_batch(batch, h, w)
+                cams0.append(dm.camera0(idx).downscaled(d))
+            else:
+                batch.pop("flow", None)
+                batch.pop("depth0", None)
+            if any_mask and "mask" not in batch:
+                batch["mask"] = torch.ones((h, w, 1), device=self.device)
+            batch.pop("atrb_mask", None)
+            batch.pop("mask_valid", None)
+            cams.append(camera)
+            batches.append(batch)
+        cache[d] = DeviceArena.stack(cams, cams0 if use_flow else None, batches)
+        return cache[d]
 
     def _maybe_start_viewer(self) -> None:
         if "viewer" in self.config.vis and self._viewer is None:
             self._viewer = self.start_viewer(port=self.config.viewer_port)
+
+    # ------------------------------------------------------------------
+    def _isect_capacity(self) -> int:
+        splat = self.config.splat
+        if splat.isect_capacity is not None:
+            return splat.isect_capacity
+        return splat.isect_capacity_factor * self.config.capacity
+
+    def _maybe_grow_isect_capacity(self, metrics) -> None:
+        """The JAX trainer's capacity self-tuner, decision for decision: warn
+        on overflow (the binning dropped the deepest tiles of the last
+        Gaussians), double the capacity above 85% (up to
+        `_isect_capacity_ceiling`), and after 10 readings in a row under 35%
+        shrink it to 1.35x the largest of the last 10 readings (floor 2^14)
+        once 1500 steps have passed since the last rebuild. A change
+        rebuilds the step (and drops its graphs)."""
+        if "num_isects" not in metrics:
+            return
+        cap = self._isect_capacity()
+        num = float(metrics["num_isects"])
+        if num > cap:
+            warnings.warn(
+                f"intersection overflow: {int(num)} > capacity {cap}; the deepest intersections of the largest "
+                "Gaussians were DROPPED this step (capacity is being grown)"
+            )
+        new_cap = None
+        low = 0 < num < 0.35 * cap
+        self._isect_low_streak = self._isect_low_streak + 1 if low else 0
+        self._isect_recent = (self._isect_recent + [num])[-10:]
+        since = self.state.step - (self._isect_last_rebuild if self._isect_last_rebuild is not None else -(1 << 30))
+        if num > 0.85 * cap:
+            new_cap = 2 * cap
+            ceiling = self._isect_capacity_ceiling()
+            if new_cap > ceiling:
+                new_cap = ceiling if cap < ceiling else None
+                warnings.warn(
+                    f"intersection capacity clamped at the ceiling {ceiling} (measured {int(num)}): the step's "
+                    "per-slot buffers must fit the device. Deepest intersections of the largest Gaussians will "
+                    "be dropped while the scene stays this dense."
+                )
+        elif low and self._isect_low_streak >= 10 and cap > (1 << 14) and since >= 1500:
+            # headroom over the recent maximum, not the instant reading: the
+            # scheduled opacity resets spike the count for ~100 steps
+            new_cap = max(int(1.35 * max(self._isect_recent)), 1 << 14)
+            if new_cap >= cap:
+                new_cap = None
+            self._isect_shrinks += 1
+        if new_cap is not None:
+            self.config = dataclasses.replace(
+                self.config, splat=dataclasses.replace(self.config.splat, isect_capacity=new_cap)
+            )
+            self._isect_last_rebuild = int(self.state.step)
+            self._rebuild_step_fn()
+
+    def _isect_capacity_ceiling(self) -> int:
+        """The largest capacity whose per-slot step buffers fit half the
+        device's memory (`ISECT_SLOT_BYTES` plus the backward's scratch at
+        the tile size), and below 2^31 (the kernels' int slot indices). The
+        JAX package's ceiling is the TPU's scalar memory for its segment
+        tables, which the port does not have."""
+        splat = self.config.splat
+        slot_bytes = ISECT_SLOT_BYTES + rasterize_cuda.quadrants(splat.tile_size) * 4 * (6 + 8)
+        if self.device.type == "cuda":
+            mem = torch.cuda.get_device_properties(self.device).total_memory
+        else:
+            mem = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+        return max(min(mem // 2 // slot_bytes, (1 << 31) - 1), 1 << 15)
+
+    # ------------------------------------------------------------------
+    def _train_scan(self, n: int) -> Dict[str, float]:
+        """`n` steps in chunks of up to `scan_chunk` (the JAX trainer's
+        `_train_scan`): each chunk is one downscale phase and SH degree and
+        ends at the next eval or save cadence point; frames follow the
+        per-step loop's order; the metrics are logged at the steps_per_log
+        cadence after the chunk, the capacity tuner reads the chunk's peak,
+        and a non-finite loss or state halts with the step."""
+        cfg = self.config
+        start = int(self.state.step)
+        end = start + n
+        last_metrics: Dict[str, float] = {}
+        win_t, win_step = time.time(), start
+        i = start
+        while i < end:
+            splat = self.config.splat
+            d = downscale_phase(splat, i)
+            sh_deg = sh_degree_to_use(splat, i)
+            stop = min(i + cfg.scan_chunk, end)
+            # a chunk is one downscale phase and one SH degree
+            if downscale_phase(splat, stop - 1) != d:
+                stop = min(stop, (i // splat.resolution_schedule + 1) * splat.resolution_schedule)
+            if sh_degree_to_use(splat, stop - 1) != sh_deg:
+                stop = min(stop, (i // splat.sh_degree_interval + 1) * splat.sh_degree_interval)
+            # cadence points land on chunk boundaries
+            for cad in (cfg.steps_per_eval_all_images, cfg.steps_per_eval_image, cfg.steps_per_save):
+                if cad:
+                    stop = min(stop, (i // cad + 1) * cad)
+            frames = self.datamanager.draw_indices(stop - i)
+            stacked = self._chunk_runner(d, sh_deg).run(i, frames)
+            now = time.time()
+            sps = (stop - win_step) / max(now - win_t, 1e-9)
+            for s in range(i, stop):
+                if s % cfg.steps_per_log == 0:
+                    row = {k: float(v[s - i]) for k, v in stacked.items()}
+                    row["step"] = s
+                    row["steps_per_sec"] = sps
+                    last_metrics = row
+                    self._log_metrics(row, s)
+            win_t, win_step = now, stop
+            # the tuner reads the chunk's peak (an overflow inside a chunk is
+            # seen at its end, as the per-step loop sees it at the next log)
+            self._maybe_grow_isect_capacity({"num_isects": float(np.max(stacked["num_isects"]))})
+            bad = ~np.isfinite(stacked["loss"]) | (stacked["params_finite"] == 0)
+            if cfg.halt_on_nan and bad.any():
+                raise FloatingPointError(
+                    f"non-finite loss or params inside the chunk [{i}, {stop}) (first at step {i + int(np.argmax(bad))});"
+                    " training halted: see TrainerConfig.halt_on_nan"
+                )
+            i = stop
+            if cfg.steps_per_eval_all_images and i % cfg.steps_per_eval_all_images == 0:
+                ev = self.eval_all(
+                    max_images=cfg.eval_all_max_images,
+                    dump_dir=Path(cfg.eval_dump_dir) / f"step_{i:09d}" if cfg.eval_dump_dir else None,
+                )
+                ev["step"] = i
+                ev["eval"] = "all"
+                self._log_metrics(ev, i, "eval")
+                win_t, win_step = time.time(), i
+            elif cfg.steps_per_eval_image and i % cfg.steps_per_eval_image == 0:
+                ev = self.eval_one(i)
+                if ev is not None:
+                    self._log_metrics(ev, i, "eval_image")
+                win_t, win_step = time.time(), i
+            if cfg.steps_per_save and i % cfg.steps_per_save == 0:
+                self.save(i)
+        return last_metrics
+
+    def _chunk_runner(self, d: int, sh_deg: int) -> "_ChunkRunner":
+        """The runner of (downscale, SH degree) at the current capacity; a
+        new phase drops the previous phase's runner and its graphs."""
+        key = (d, sh_deg)
+        runner = self._runners.get(key)
+        if runner is None:
+            self._runners = {key: _ChunkRunner(self, self._device_dataset(d), sh_deg, self.config.scan_chunk)}
+            runner = self._runners[key]
+        return runner
 
     def train(self, num_steps: Optional[int] = None) -> Dict[str, float]:
         """Run `num_steps` steps (default max_num_iterations) from the
@@ -252,6 +494,8 @@ class Trainer:
         cfg = self.config
         self._maybe_start_viewer()
         n = num_steps if num_steps is not None else cfg.max_num_iterations
+        if cfg.scan_chunk > 1:
+            return self._train_scan(n)
         last_metrics: Dict[str, float] = {}
         start = int(self.state.step)
         win_t = time.time()  # steps/s over the steps since the last log or eval
@@ -260,6 +504,7 @@ class Trainer:
             idx, camera, batch = self.datamanager.next_train_indexed(i)
             self.state, metrics = self._dispatch_step(i, idx, camera, batch)
             if i % cfg.steps_per_log == 0:
+                self._maybe_grow_isect_capacity(metrics)
                 last_metrics = {k: float(v) for k, v in metrics.items() if k != "refine"}
                 last_metrics["step"] = i
                 poisoned = not np.isfinite(last_metrics.get("loss", 0.0)) or not last_metrics.get("params_finite", 1.0)
@@ -354,3 +599,125 @@ class Trainer:
 
     def load(self, path: Path, step: Optional[int] = None) -> None:
         self.state = load_checkpoint(Path(path), self.state, step)
+        self._runners = {}  # the loaded state's tensors are new: graphs of the old ones are stale
+
+
+class _ChunkRunner:
+    """Runs a chunk's steps for one (downscale phase, SH degree) from device
+    tables: the frame index of each step (`idx`), each group's Adam scalars
+    (`scalars`, `optimizers.adam_scalars` at the group's count, one row a
+    step) and a step cursor; each step writes its metrics into its row of
+    `metrics`, which come to the host once per chunk.
+
+    On the card each step variant (`Trainer._step_variant`) is captured
+    once as a CUDA graph: its first step runs eagerly on a side stream (the
+    warm-up, which also builds the kernels and sizes the metrics table),
+    then the same step is captured, and its later steps replay the graph.
+    The graph reads the cursor, the tables and the state's tensors, all at
+    fixed addresses, and advances the cursor itself, so a chunk launches its
+    replays back to back with no host synchronisation. The state's generator
+    is registered with each graph, so a replay draws the random background
+    the eager step would. The host keeps the step and the Adam counts: a
+    replay adds the counts the captured step added. The capture launches no
+    kernel, so the launch counters are set back after it, and
+    `trainer.graph_stats["replayed_launches"]` adds each graph's captured
+    launches at every replay. Refinement runs eagerly after its step (it
+    reads counts on the host) and rewrites the step's state metrics. A
+    capture or replay error raises: there is no eager fallback. On the CPU
+    every step runs eagerly through the same tables."""
+
+    def __init__(self, trainer: Trainer, arena: DeviceArena, sh_deg: int, length: int):
+        self.trainer = trainer
+        self.arena = arena
+        self.sh_deg = sh_deg
+        dev = trainer.device
+        self.groups = sorted(trainer.state.opt_states)
+        self.idx = torch.zeros(length, dtype=torch.long, device=dev)
+        self.scalars = torch.zeros((length, len(self.groups), 3), device=dev)
+        self.cursor = torch.zeros(1, dtype=torch.long, device=dev)
+        self.keys: Optional[List[str]] = None
+        self.metrics: Optional[torch.Tensor] = None
+        self.graphs: Dict[tuple, tuple] = {}
+        self.pool = None
+
+    def _body(self, variant: tuple) -> None:
+        """One step from the tables' row at the cursor; advances the cursor."""
+        t = self.trainer
+        k = self.cursor
+        frame = self.idx.index_select(0, k)
+        camera, camera0, batch = self.arena.select(frame)
+        row = self.scalars.index_select(0, k)[0]
+        metrics = t._step_core(
+            camera, camera0, batch, self.sh_deg, frame, variant, {g: row[j] for j, g in enumerate(self.groups)}
+        )
+        with torch.no_grad():
+            metrics.update(state_metrics(t.state, t._metric_groups()))
+            if self.keys is None:
+                self.keys = list(metrics)
+                self.metrics = torch.zeros((self.idx.shape[0], len(self.keys)), device=k.device)
+            self.metrics.index_copy_(0, k, torch.stack([metrics[n].float().reshape(()) for n in self.keys])[None])
+            self.cursor.add_(1)
+
+    def _graphed(self, variant: tuple) -> None:
+        t, st = self.trainer, self.trainer.state
+        entry = self.graphs.get(variant)
+        if entry is not None:
+            graph, count_delta, launches = entry
+            graph.replay()
+            for g, dc in count_delta.items():
+                st.opt_states[g].count += dc
+            stats = t.graph_stats
+            stats["replays"] += 1
+            for name, c in launches.items():
+                stats["replayed_launches"][name] = stats["replayed_launches"].get(name, 0) + c
+            return
+        dev = t.device
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._body(variant)  # the warm-up is this step, run eagerly
+        torch.cuda.current_stream(dev).wait_stream(side)
+        counts = {g: s.count for g, s in st.opt_states.items()}
+        launches = {**rasterize_cuda.LAUNCHES, **mlp_cuda.LAUNCHES}
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(st.generator)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, pool=self.pool):
+            self._body(variant)
+        t.graph_stats["capture_s"] += time.perf_counter() - t0
+        t.graph_stats["captures"] += 1
+        count_delta = {g: s.count - counts[g] for g, s in st.opt_states.items() if s.count != counts[g]}
+        for g in count_delta:
+            st.opt_states[g].count = counts[g]
+        captured = {}
+        for table in (rasterize_cuda.LAUNCHES, mlp_cuda.LAUNCHES):
+            for name in table:
+                if table[name] != launches[name]:
+                    captured[name] = table[name] - launches[name]
+                    table[name] = launches[name]
+        self.pool = graph.pool()
+        self.graphs[variant] = (graph, count_delta, captured)
+
+    def run(self, start: int, frames: List[int]) -> Dict[str, np.ndarray]:
+        """Steps start .. start + len(frames) - 1 on `frames`; returns each
+        metric's values, one a step."""
+        t, st = self.trainer, self.trainer.state
+        n = len(frames)
+        self.idx[:n].copy_(torch.tensor(frames, dtype=torch.long))
+        table = [[adam_scalars(t.optimizers[g], st.opt_states[g].count + j) for g in self.groups] for j in range(n)]
+        self.scalars[:n].copy_(torch.tensor(table, dtype=torch.float32))
+        self.cursor.zero_()
+        for j in range(n):
+            s = start + j
+            variant = t._step_variant(s)
+            if t.device.type == "cuda":
+                self._graphed(variant)
+            else:
+                self._body(variant)
+            st.step += 1
+            if t._refine_at(s, (self.arena.height, self.arena.width)) is not None:
+                with torch.no_grad():
+                    for name, v in state_metrics(st, t._metric_groups()).items():
+                        self.metrics[j, self.keys.index(name)] = v.float()
+        out = self.metrics[:n].cpu().numpy()
+        return {name: out[:, c] for c, name in enumerate(self.keys)}

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.math import device_constant, take_row
+
 _LUMA = (0.299, 0.587, 0.114)
 
 
@@ -36,7 +38,7 @@ def _floor_frac(a: torch.Tensor, size: int):
 
 def slice_bilateral_grid(grids: torch.Tensor, image_idx, rgb: torch.Tensor) -> torch.Tensor:
     """Apply image_idx's grid to an (H, W, 3) rendered image."""
-    grid = grids[image_idx]  # (W, Y, X, 12)
+    grid = take_row(grids, image_idx)  # (W, Y, X, 12)
     gw, gy, gx, _ = grid.shape
     h, w = rgb.shape[:2]
     dev = rgb.device
@@ -44,7 +46,7 @@ def slice_bilateral_grid(grids: torch.Tensor, image_idx, rgb: torch.Tensor) -> t
     xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
     u = (xs + 0.5) / w * (gx - 1)
     v = (ys + 0.5) / h * (gy - 1)
-    luma = rgb @ torch.tensor(_LUMA, dtype=rgb.dtype, device=dev)
+    luma = rgb @ device_constant(_LUMA, rgb.dtype, dev)
     # min(max(.)) splits the gradient in half at a guide of exactly 0 or 1,
     # as jnp.clip does (torch.clamp passes all of it)
     zero, one = torch.zeros((), device=dev), torch.ones((), device=dev)

@@ -11,7 +11,7 @@ import dataclasses
 import torch
 
 from ..data.cameras import Camera
-from ..ops.math import exp_so3, safe_norm
+from ..ops.math import exp_so3, safe_norm, take_row
 
 
 def init_camera_opt(num_cameras: int, device="cuda") -> torch.Tensor:
@@ -25,7 +25,7 @@ def apply_camera_opt(adjustments: torch.Tensor, camera: Camera, cam_idx) -> Came
     """The camera with the cam_idx-th adjustment applied to its c2w. At a
     zero tangent the axis is 0 / safe_norm's eps (the identity rotation),
     and the gradient stays finite."""
-    v = adjustments[cam_idx]
+    v = take_row(adjustments, cam_idx)
     phi, t = v[:3], v[3:]
     theta = safe_norm(phi, keepdim=True)
     axis = phi / theta

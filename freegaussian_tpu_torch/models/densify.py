@@ -16,7 +16,11 @@ New Gaussians go into the dead slots in index order (a stable argsort of
 the alive mask), and what does not fit is dropped, as in the JAX package.
 The split samples' normal draws come from a `torch.Generator`, or are
 passed in (`split_eps`) so that a test can hand both packages the same
-numbers. `refine` returns new tensors; the caller writes them back.
+numbers. `refine` returns new tensors; the caller writes them back into the
+state's tensors. The statistics (`update_stats`, `DensifyState.reset_`) and
+the moment rows (`zero_moment_rows`) are updated in place, so a training
+step keeps the same tensors from step to step (a CUDA graph of the step
+reads and writes them at fixed addresses).
 """
 
 from __future__ import annotations
@@ -63,22 +67,29 @@ class DensifyState:
             max_2dsize=torch.zeros(capacity, device=device),
         )
 
+    def reset_(self) -> "DensifyState":
+        """`create`'s values, written in place."""
+        self.xys_grad_norm.zero_()
+        self.vis_counts.fill_(1.0)
+        self.max_2dsize.zero_()
+        return self
+
 
 def update_stats(
     state: DensifyState, radii: torch.Tensor, absgrad: torch.Tensor, last_size: Tuple[int, int]
 ) -> DensifyState:
     """Accumulate one step's statistics from the int 3-sigma radii
-    (`info.radii`) and the absgrad (ref: freegaussian_model.py:369-392)."""
+    (`info.radii`) and the absgrad (ref: freegaussian_model.py:369-392), in
+    place; returns `state`."""
     visible = radii > 0
     grads = torch.linalg.vector_norm(absgrad, dim=-1)
     max_hw = float(max(last_size))
-    return DensifyState(
-        vis_counts=state.vis_counts + visible,
-        xys_grad_norm=state.xys_grad_norm + torch.where(visible, grads, torch.zeros_like(grads)),
-        max_2dsize=torch.where(
-            visible, torch.maximum(state.max_2dsize, radii.float() / max_hw), state.max_2dsize
-        ),
+    state.vis_counts.add_(visible)
+    state.xys_grad_norm.add_(torch.where(visible, grads, torch.zeros_like(grads)))
+    state.max_2dsize.copy_(
+        torch.where(visible, torch.maximum(state.max_2dsize, radii.float() / max_hw), state.max_2dsize)
     )
+    return state
 
 
 def _scatter_new(
@@ -214,7 +225,7 @@ def zero_moment_rows(state, mask: torch.Tensor, param_template: torch.Tensor):
     moment tensor of `state` (an `AdamState`) shaped like the parameter.
     The step count is left as it is."""
     for moments in (state.mu, state.nu):
-        for k, m in moments.items():
+        for m in moments.values():
             if m.shape == param_template.shape:
-                moments[k] = torch.where(mask.reshape(mask.shape + (1,) * (m.ndim - 1)), torch.zeros_like(m), m)
+                m.masked_fill_(mask.reshape(mask.shape + (1,) * (m.ndim - 1)), 0.0)
     return state

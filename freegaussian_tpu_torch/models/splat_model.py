@@ -270,7 +270,8 @@ def render_gaussians(
 ) -> Dict[str, torch.Tensor]:
     """`rasterization` of the (deformed) Gaussians, then the background
     composite and clamp and the detached-max depth backfill: the tail that
-    the stage-1 and the stage-2 forwards share."""
+    the stage-1 and the stage-2 forwards share. The binning's capacity is
+    the JAX package's rule (`isect_capacity`)."""
     render, alpha, info = rasterization(
         means,
         quats_n,
@@ -291,6 +292,8 @@ def render_gaussians(
         means2d_sink=means2d_sink,
         extra_channels=extra_channels,
         backend=cfg.backend,
+        chunk=cfg.chunk,
+        isect_capacity=isect_capacity(cfg, means.shape[0], gather_axis),
         tight_radius=cfg.tight_radius,
         gather_axis=gather_axis,
         tile_origin_y=band_origin_y,
@@ -320,6 +323,21 @@ def render_gaussians(
         # unseen pixels get the detached max depth (ref: freegaussian_model.py:886)
         out["depth"] = torch.where(alpha[0] > 0, depth, depth.max().detach())
     return out
+
+
+def isect_capacity(cfg: SplatConfig, num_gaussians: int, gather_axis=None) -> int:
+    """The binning's slot capacity (the JAX package's rule,
+    splat_model.py:379-383): `cfg.isect_capacity`, else
+    `isect_capacity_factor` slots per Gaussian of the whole (gathered) set,
+    `num_gaussians` being this rank's shard of it."""
+    if cfg.isect_capacity is not None:
+        return cfg.isect_capacity
+    shard_factor = 1
+    if gather_axis is not None:
+        import torch.distributed as dist
+
+        shard_factor = dist.get_world_size(gather_axis)
+    return cfg.isect_capacity_factor * num_gaussians * shard_factor
 
 
 def loss_fn(

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.math import device_constant
+
 
 @functools.lru_cache(maxsize=None)
 def _gaussian_window(size: int, sigma: float) -> np.ndarray:
@@ -54,7 +56,7 @@ def ssim_map(
     max_win = min(img1.shape[2], img1.shape[3])
     if win_size > max_win:
         win_size = max_win if max_win % 2 == 1 else max_win - 1
-    win = torch.as_tensor(_gaussian_window(win_size, win_sigma), device=img1.device)
+    win = device_constant(_gaussian_window(win_size, win_sigma), torch.float32, img1.device)
 
     c1 = (k1 * data_range) ** 2
     c2 = (k2 * data_range) ** 2

@@ -16,7 +16,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .math import bilinear_interp
+from .math import bilinear_interp, inv3x3
 
 
 def query_3d_gaussian_flow(
@@ -43,7 +43,7 @@ def query_3d_gaussian_flow(
     y2 = ys + flow[:, 1]
     Z = bilinear_interp(Z0[None], x2[None], y2[None])[0, :, 0]  # (N,)
 
-    Kinv = torch.linalg.inv(K)
+    Kinv = inv3x3(K)
     pix_h = torch.stack([x2, y2, torch.ones_like(x2)], dim=-1)  # (N, 3)
     p_cam = (pix_h @ Kinv.T) * Z[:, None]
     R = c2w_prev[:3, :3]

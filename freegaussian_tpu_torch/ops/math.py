@@ -61,12 +61,48 @@ def exp_so3(w: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     return eye + s * W + (1.0 - c) * W_sqr
 
 
+_CONSTANTS: dict = {}
+
+
+def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A tensor of the flat `values` on `device`, made once per (values,
+    dtype, device) and shared by every later call, which then copies
+    nothing from the host: a CUDA graph captured after the first call reads
+    the same tensor. Callers must not write into it."""
+    key = (tuple(float(v) for v in values), dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(key[0], dtype=dtype, device=device)
+    return t
+
+
+def take_row(t: torch.Tensor, idx) -> torch.Tensor:
+    """t[idx] for an int, or for a one-element integer tensor on t's device
+    (which an index would read on the host: this selects on the device)."""
+    if isinstance(idx, torch.Tensor):
+        return t.index_select(0, idx.reshape(1).long())[0]
+    return t[idx]
+
+
+def inv3x3(m: torch.Tensor) -> torch.Tensor:
+    """The inverse of a (3, 3) matrix, its adjugate over its determinant:
+    elementwise work, so a CUDA graph can capture it (`torch.linalg.inv`
+    waits on the host on CUDA)."""
+    (a, b, c), (d, e, f), (g, h, i) = m[0], m[1], m[2]
+    adj = torch.stack([
+        torch.stack([e * i - f * h, c * h - b * i, b * f - c * e]),
+        torch.stack([f * g - d * i, a * i - c * g, c * d - a * f]),
+        torch.stack([d * h - e * g, b * g - a * h, a * e - b * d]),
+    ])
+    return adj / (a * adj[0, 0] + b * adj[1, 0] + c * adj[2, 0])
+
+
 def positional_embed(x: torch.Tensor, num_freqs: int, include_input: bool = True) -> torch.Tensor:
     """NeRF encoding with frequencies 2^0 .. 2^(L-1), band order
     [x, sin(2^0 x), cos(2^0 x), sin(2^1 x), cos(2^1 x), ...]."""
     d = x.shape[-1]
     lead = x.shape[:-1]
-    freqs = torch.tensor([2.0**i for i in range(num_freqs)], dtype=x.dtype, device=x.device)
+    freqs = device_constant([2.0**i for i in range(num_freqs)], x.dtype, x.device)
     ang = x[..., None, :] * freqs[:, None]  # (..., L, d)
     sc = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-2)  # (..., L, 2, d)
     sc = sc.reshape(*lead, 2 * num_freqs * d)
@@ -79,7 +115,7 @@ def get_viewmat(c2w: torch.Tensor) -> torch.Tensor:
     """OpenGL camera-to-world (..., 3|4, 4) -> OpenCV world-to-camera (..., 4, 4)."""
     R = c2w[..., :3, :3]
     T = c2w[..., :3, 3:4]
-    flip = torch.tensor([1.0, -1.0, -1.0], dtype=c2w.dtype, device=c2w.device)
+    flip = device_constant([1.0, -1.0, -1.0], c2w.dtype, c2w.device)
     R = R * flip[None, :]
     R_inv = R.transpose(-1, -2)
     T_inv = -(R_inv @ T)
@@ -90,8 +126,7 @@ def to_4x4(m: torch.Tensor) -> torch.Tensor:
     """(..., 3, 4) -> (..., 4, 4) with a [0, 0, 0, 1] bottom row; (..., 4, 4) as given."""
     if m.shape[-2] == 4:
         return m
-    bottom = torch.zeros_like(m[..., :1, :])
-    bottom[..., 0, 3] = 1.0
+    bottom = device_constant([0.0, 0.0, 0.0, 1.0], m.dtype, m.device).expand(*m.shape[:-2], 1, 4)
     return torch.cat([m, bottom], dim=-2)
 
 
@@ -103,7 +138,7 @@ def opengl_to_opencv_c2w(c2w: torch.Tensor, keep_original_world_coordinate: bool
     out = to_4x4(c2w)
     if not keep_original_world_coordinate:
         out = torch.cat([out[..., 0:1, :], -out[..., 2:3, :], out[..., 1:2, :], out[..., 3:4, :]], dim=-2)
-    flip = torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=out.dtype, device=out.device)
+    flip = device_constant([1.0, -1.0, -1.0, 1.0], out.dtype, out.device)
     out = torch.cat([out[..., :3, :] * flip, out[..., 3:, :]], dim=-2)
     return out[..., :3, :] if c2w.shape[-2] == 3 else out
 

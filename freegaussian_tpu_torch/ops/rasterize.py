@@ -11,6 +11,12 @@ same signature and `RasterizeInfo`:
 The pixel stage is `ops/rasterize_cuda.py:rasterize_pixels`: the CUDA tile
 compositor and its backward on a GPU, their plain PyTorch versions on the
 CPU. Everything is differentiable in the Gaussians' attributes.
+`isect_capacity` bins into that many slots, rounded up to `chunk` as the
+JAX package rounds it, so the two drop the same pairs on overflow; the
+binning then waits on nothing on the host, `info.num_isects` is a 0-d
+device tensor (the count before the clamp), and with
+`rasterize_cuda.ELLIPSE_CULL` the conics and opacities cull the bins.
+Without it the tile path bins exactly `num_isects` slots (an int).
 `means2d_sink` (N, 2), zeros, collects the AbsGS absgrad as its gradient:
 on the tile path the per-kernel-tile |d means2d| summed per Gaussian; with
 `backend="reference"` it rides means2d, giving the signed gradient (as the
@@ -59,7 +65,7 @@ class RasterizeInfo(NamedTuple):
     depths: torch.Tensor  # (N,)
     conics: torch.Tensor  # (N, 3)
     compensations: torch.Tensor  # (N,)
-    num_isects: int  # tile intersections this frame
+    num_isects: int | torch.Tensor  # tile intersections this frame (0-d with a capacity)
     gaussian_ids: torch.Tensor | None = None
     isect_means2d: torch.Tensor | None = None
     isect_depths: torch.Tensor | None = None
@@ -102,10 +108,10 @@ def rasterization(
     Returns (render (1, H, W, C_out), alpha (1, H, W, 1), info). For "RGB+ED"
     the last channel is expected depth (accumulated depth normalized by
     alpha); for "ED" the single channel is expected depth. `backend`
-    "reference" runs the dense oracle instead of the tile path; `chunk` and
-    `isect_capacity` size the TPU's static buffers and are not used here
-    (the port bins exactly `num_isects` slots). `absgrad` is accepted for
-    the gsplat signature: the absgrad statistic comes through
+    "reference" runs the dense oracle instead of the tile path (and counts
+    its bins on the host); `isect_capacity`, rounded up to `chunk`, bounds
+    the tile path's bins (see the module docstring). `absgrad` is accepted
+    for the gsplat signature: the absgrad statistic comes through
     `means2d_sink`."""
     if rasterize_mode not in ("classic", "antialiased"):
         raise ValueError(f"Unknown rasterize_mode: {rasterize_mode}")
@@ -187,6 +193,7 @@ def rasterization(
         render, alpha, num_isects = rasterize_pixels(
             means2d_px, conics, channels, opac, depths, radii_pixel,
             width, height, tile_size=tile_size, means2d_sink=sink_for_pixels,
+            capacity=None if isect_capacity is None else -(-int(isect_capacity) // chunk) * chunk,
         )
 
     if render_mode in ("RGB+ED", "ED"):

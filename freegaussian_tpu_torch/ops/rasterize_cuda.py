@@ -30,7 +30,15 @@ picks the walk, as the module knob of the same name does in the JAX package.
 `rasterize_pallas.py:_reduce_rows_by_gid`).
 
 `rasterize_pixels` is the pixel stage end to end (binning, then the
-differentiable compositor), the twin of `rasterize_pixels_pallas`.
+differentiable compositor), the twin of `rasterize_pixels_pallas`. With a
+`capacity` it bins into that many slots (`ops/tiles.py`): the slot lists
+are then padded, with padding slots (`gauss_ids == N`) past every tile's
+range. The walks read only the tiles' ranges, the combine writes a zero row
+for a padding slot, and the per-Gaussian reduction clamps its groups to the
+slot count, so padding and overflow leave the gradients of the kept pairs
+as they are. ELLIPSE_CULL and PRECULL are the JAX package's knobs of the
+same name (`rasterize_pallas.py`): the exact ellipse cull in the
+capacity-bounded binning, off by default.
 """
 
 from __future__ import annotations
@@ -65,9 +73,15 @@ KERNEL_SOURCES = ("rasterize_fwd", "rasterize_bwd")
 # identity, whose subtraction cancels where the suffix is small).
 BWD_WALK = "rev"
 
+# The exact per-(Gaussian, tile) ellipse cull of the capacity-bounded binning
+# (`tiles.py:_ellipse_cull_test`), off by default as in the JAX package, and
+# its pre-expansion form.
+ELLIPSE_CULL = False
+PRECULL = True
+
 # (source, ctypes argument layout) of each kernel's C entry point
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_BWD_ARGS = [_P] * 11 + [_I] * 8 + [_P, _P, _I, _P]
+_BWD_ARGS = [_P] * 11 + [_I] * 9 + [_P, _P, _I, _P]
 _ENTRIES = {
     "rasterize_fwd": ("rasterize_fwd", [_P] * 7 + [_I] * 7 + [_P] * 5),
     "rasterize_bwd": ("rasterize_bwd", _BWD_ARGS),
@@ -246,7 +260,9 @@ def quadrants(tile_size: int) -> int:
 
 def bwd_buffers(num_isects: int, C: int, tile_size: int, device):
     """The backward's output rows (I, 8 + C) and its per-quadrant scratch
-    (Q, I, 6 + C), both f32 and uninitialized: the kernels write every element."""
+    (Q, I, 6 + C), both f32 and uninitialized: the combine writes every row
+    (zeros for a padding slot), and the walk writes the scratch of every
+    slot in a tile's range, the only slots the combine reads."""
     f32 = dict(dtype=torch.float32, device=device)
     rows = torch.empty((num_isects, GRAD_ROW_HEAD + C), **f32)
     return rows, torch.empty((quadrants(tile_size), num_isects, 6 + C), **f32)
@@ -265,7 +281,7 @@ def launch_bwd(name, means2d, conics, colors, opacities, radii, gauss_ids, tile_
         radii.data_ptr(), gauss_ids.data_ptr(), tile_offsets.data_ptr(),
         g_color.data_ptr(), g_alpha.data_ptr(), livecnt.data_ptr(), pixel_in.data_ptr(),
         colors.shape[1], width, height, tile_size, tiles_w, tiles_h, int(tile_size != CONTRACT_TILE),
-        gauss_ids.shape[0], rows.data_ptr(), scratch.data_ptr(), parts,
+        gauss_ids.shape[0], means2d.shape[0], rows.data_ptr(), scratch.data_ptr(), parts,
         torch.cuda.current_stream(rows.device).cuda_stream,
     )
     if rc != 0:
@@ -287,10 +303,15 @@ def _sequential_cumprod(x: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=-1)
 
 
+def _gather_padded(per_gauss: torch.Tensor, gauss_ids: torch.Tensor) -> torch.Tensor:
+    """per_gauss[gauss_ids] with a zero row at index N: a padding slot's row."""
+    pad = per_gauss.new_zeros((1,) + tuple(per_gauss.shape[1:]))
+    return torch.cat([per_gauss, pad])[gauss_ids.long()]
+
+
 def _slot_rows(means2d, conics, colors, opacities, gauss_ids):
     """The per-intersection rows [mx, my, ca, cb, cc, op, colors] (I, 6 + C)."""
-    per_gauss = torch.cat([means2d, conics, opacities[:, None], colors], dim=1)
-    return per_gauss[gauss_ids.long()]
+    return _gather_padded(torch.cat([means2d, conics, opacities[:, None], colors], dim=1), gauss_ids)
 
 
 def rasterize_tiles_plain(
@@ -299,7 +320,7 @@ def rasterize_tiles_plain(
 ):
     """Plain PyTorch version of `rasterize_tiles` (same inputs, same outputs)."""
     rows = _slot_rows(means2d, conics, colors, opacities, gauss_ids)
-    return _composite_plain(rows, radii[gauss_ids.long()], tile_offsets, width, height, tile_size)
+    return _composite_plain(rows, _gather_padded(radii, gauss_ids), tile_offsets, width, height, tile_size)
 
 
 def rasterize_tiles_quadrants_plain(
@@ -316,7 +337,7 @@ def rasterize_tiles_quadrants_plain(
     sums them. Not differentiable."""
     rows = _slot_rows(means2d, conics, colors, opacities, gauss_ids)
     with torch.no_grad():
-        return _composite_plain(rows, radii[gauss_ids.long()], tile_offsets, width, height, tile_size, quadrants=True)
+        return _composite_plain(rows, _gather_padded(radii, gauss_ids), tile_offsets, width, height, tile_size, quadrants=True)
 
 
 def _composite_plain(rows, slot_radii, tile_offsets, width: int, height: int, tile_size: int, quadrants=False):
@@ -497,13 +518,14 @@ def rasterize_tiles_bwd_plain(
     gives each row's gradient independently of the kernel's algebra. The
     absgrad of a row is the abs of its means2d gradient (one row is one
     (tile, Gaussian) pair, so that gradient is already the tile's sum)."""
-    ids = gauss_ids.long()
     rows = _slot_rows(means2d, conics, colors, opacities, gauss_ids).detach().requires_grad_(True)
     C = colors.shape[1]
     d_rows = None
     if rows.shape[0] > 0:
         with torch.enable_grad():
-            color, alpha, _, _ = _composite_plain(rows, radii[ids], tile_offsets, width, height, tile_size)
+            color, alpha, _, _ = _composite_plain(
+                rows, _gather_padded(radii, gauss_ids), tile_offsets, width, height, tile_size
+            )
             if color.requires_grad:
                 (d_rows,) = torch.autograd.grad((color, alpha), rows, (g_color, g_alpha), allow_unused=True)
     if d_rows is None:
@@ -538,19 +560,18 @@ def quadrant_partials_plain(
     C = colors.shape[1]
     Q = quadrants(tile_size)
     side = tile_size // CONTRACT_TILE
-    ids = gauss_ids.long()
     rows = _slot_rows(means2d, conics, colors, opacities, gauss_ids).detach().requires_grad_(True)
     out = torch.zeros((Q, rows.shape[0], 6 + C), dtype=torch.float32, device=means2d.device)
     if rows.shape[0] == 0:
         return out
     with torch.enable_grad():
-        color, alpha, _, _ = _composite_plain(rows, radii[ids], tile_offsets, width, height, tile_size)
+        color, alpha, _, _ = _composite_plain(rows, _gather_padded(radii, gauss_ids), tile_offsets, width, height, tile_size)
     if not color.requires_grad:  # no pair reached any pixel
         return out
     ys = torch.arange(height, device=means2d.device)[:, None]
     xs = torch.arange(width, device=means2d.device)[None, :]
     quad = ((ys % tile_size) // CONTRACT_TILE) * side + (xs % tile_size) // CONTRACT_TILE  # (H, W)
-    op = opacities[ids]
+    op = _gather_padded(opacities, gauss_ids)
     for q in range(Q):
         m = (quad == q).to(g_alpha.dtype)
         (d,) = torch.autograd.grad(
@@ -568,11 +589,14 @@ def quadrant_partials_plain(
 def combine_quadrants_plain(partials: torch.Tensor, opacities, gauss_ids) -> torch.Tensor:
     """The combine: the Q partials (Q, I, 6 + C) added in quadrant order,
     then d opacity = -sum / op and the absgrad |sum of d means2d| over the
-    whole kernel tile. Returns the rows (I, 8 + C)."""
+    whole kernel tile. Returns the rows (I, 8 + C); a padding slot
+    (gauss_ids >= N) gets a zero row, whatever its partials hold."""
     s = partials[0]
     for q in range(1, partials.shape[0]):
         s = s + partials[q]
-    op = opacities[gauss_ids.long()]
+    real = (gauss_ids < opacities.shape[0])[:, None]
+    s = torch.where(real, s, torch.zeros_like(s))
+    op = _gather_padded(opacities, gauss_ids)
     live = (op > 0) & (s[:, 5] != 0)
     d_op = torch.where(live, -s[:, 5] / torch.where(live, op, torch.ones_like(op)), torch.zeros_like(op))
     return torch.cat([s[:, :5], d_op[:, None], s[:, :2].abs(), s[:, 6:]], dim=1)
@@ -593,13 +617,17 @@ def reduce_rows_by_gid(
     outgrows the rows' own budget, and differs between a frame and its
     bands; in f64 each sum is its rows' sum rounded once to f32. The prefix
     sum runs along the last axis of the transposed (D, I) rows: on CUDA a
-    scan over the outer axis of (I, D) is some 300x slower. Returns (N, D)
-    f32."""
+    scan over the outer axis of (I, D) is some 300x slower. The group bounds
+    clamp to the slot count I, as the JAX function's do ("overflow clamps to
+    the kept range"): past an overflow the expansion-order bounds run beyond
+    the slots, and the padding rows they then reach (gauss_ids N, sorted
+    last) are zero. Returns (N, D) f32."""
     order = torch.argsort(gauss_ids, stable=True)
     cs = torch.cumsum(rows[order].double().t().contiguous(), dim=1)  # (D, I)
     cs = torch.cat([cs.new_zeros((rows.shape[1], 1)), cs], dim=1)
-    lo = offsets.long()
-    hi = lo + counts.long()
+    num = rows.shape[0]
+    lo = torch.clamp(offsets.long(), max=num)
+    hi = torch.clamp(offsets.long() + counts.long(), max=num)
     return (cs[:, hi] - cs[:, lo]).t().float()
 
 
@@ -660,12 +688,21 @@ def rasterize_pixels(
     *,
     tile_size: int = 16,
     means2d_sink: torch.Tensor | None = None,
+    capacity: int | None = None,
 ):
     """Tile-rasterize pre-projected Gaussians. Returns
     (render (H, W, C), alpha (H, W, 1), num_isects). Differentiable in
     means2d, conics, colors and opacities; `means2d_sink` (N, 2), zeros,
-    receives the AbsGS absgrad as its gradient (per kernel tile)."""
-    isect = build_intersections(means2d.detach(), radii, depths.detach(), width, height, tile_size)
+    receives the AbsGS absgrad as its gradient (per kernel tile).
+    `capacity`: bin into that many slots, with no host synchronisation
+    (num_isects, the total before the clamp, is then a 0-d device tensor),
+    and with ELLIPSE_CULL the conics and opacities cull the bins; None bins
+    exactly num_isects slots (an int)."""
+    cull = ELLIPSE_CULL and capacity is not None
+    isect = build_intersections(
+        means2d.detach(), radii, depths.detach(), width, height, tile_size, capacity,
+        conics=conics if cull else None, opacities=opacities if cull else None, precull=PRECULL,
+    )
     color, alpha = _PixelStage.apply(
         means2d.float().contiguous(),
         conics.float().contiguous(),

@@ -346,7 +346,7 @@ def make_parallel_train_step(
                 "ssim": mean_data(ssim_v),
                 "psnr": _all_reduce(psnr(pred.detach(), gt)) / ndev,
                 "gaussian_count": alive.sum(),
-                "num_isects": int(_all_reduce(torch.tensor(outputs["num_isects"], device=dev))) // n_data,
+                "num_isects": int(_all_reduce(torch.as_tensor(outputs["num_isects"], device=dev).long())) // n_data,
             }
             for k, v in metrics_extra.items():
                 metrics[k] = mean_data(v)
