@@ -214,6 +214,17 @@ world size 1, with every kernel built from this checkout. Phases, printed as eac
               share, device events per step), the capture time and the
               launches with the replays' (a capture or replay failure
               raises; there is no eager fallback)
+ 25. sweep    the eval sweep (`sweep` lines): `eval_all` of stage 1 and
+              stage 2 over phase 13's 8 frames with the bench scene loaded
+              as in phase 24, LPIPS off (FREEGAUSSIAN_LPIPS_WEIGHTS set to a
+              missing file): one CUDA graph a sweep, captured in the first
+              call after its eager warm-up frame, replayed once a frame;
+              each frame's PSNR and SSIM against the per-frame loop's on the
+              same trainer (within 1e-5); the launches of each call (8
+              `rasterize_fwd` + 8 `deform_fwd`, 8 + 24 `field_fwd`); then
+              eval_all with the sweep and with the loop in turns, 5 rounds
+              each (fps), the first call and the capture apart, and one
+              profiler window of each (busy share)
 
 Then one JSON line of kernel records and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2066,6 +2077,25 @@ EXPORT_ATOL = 1e-6  # the exported checkpoint's frame against the trainer's
 EVAL_MIN_PSNR = 25.0  # stage-1 eval of the bench scene against the dataset rendered from it
 
 
+@contextlib.contextmanager
+def lpips_weights_env(path: Path):
+    """FREEGAUSSIAN_LPIPS_WEIGHTS set to `path` inside the block, then set
+    back to what it was (or unset): `eval_all` takes its per-frame loop
+    while LPIPS weights load, and the sweep otherwise."""
+    import os
+
+    name = "FREEGAUSSIAN_LPIPS_WEIGHTS"
+    before = os.environ.get(name)
+    os.environ[name] = str(path)
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = before
+
+
 def seeded_lpips_weights(path: Path, seed: int = SEED + 61) -> Path:
     """Seeded AlexNet-LPIPS weights in the npz layout `models/metrics.py`
     reads: conv weights N(0, 1 / fan_in), biases N(0, 0.05^2), calibration
@@ -2182,8 +2212,6 @@ def phase_pipeline(tmp: Path, data: Path, verb: dict, model, card: str) -> dict:
     with the train verb's config overlay; the launch counts zeroed just
     before each verb and read just after (see the module docstring, phase
     19)."""
-    import os
-
     import torch
 
     from freegaussian_tpu_torch import cli
@@ -2286,42 +2314,43 @@ def phase_pipeline(tmp: Path, data: Path, verb: dict, model, card: str) -> dict:
         raise AssertionError(f"pipeline train-control: losses {losses}, mask rows equal {same_mask}")
     del ctrainer, run
 
-    # 3. eval, stage 1 and stage 2, with LPIPS from seeded weights
-    os.environ["FREEGAUSSIAN_LPIPS_WEIGHTS"] = str(seeded_lpips_weights(out / "lpips_seeded.npz"))
-    for label, flags, want in (
-        ("eval stage 1", stage1, _want_launches(rasterize_fwd=n_frames, deform_fwd=n_frames)),
-        # stage 2: the control state (the deform trunk at the init time and the frame's) and the control trunk
-        ("eval stage 2", [*stage2, "--load", control_out / "freegaussian" / "checkpoints"],
-         _want_launches(rasterize_fwd=n_frames, field_fwd=3 * n_frames)),
-    ):
-        tag = label.replace(" ", "_")
-        run = _run_verb(["eval", *flags, "--dump-images", out / f"{tag}_dump", "--report", out / f"{tag}.json"])
-        add(run)
-        _check_launches(label, run, want, {4: n_frames})  # the serving forward renders RGB+ED
-        report = json.loads((out / f"{tag}.json").read_text())
-        trainer = run["trainer"]
-        with torch.no_grad():
-            frames = [(trainer._render_rgb(cam), batch["image"][..., :3]) for cam, batch in trainer.datamanager.eval_frames()]
-            card_lp = [lpips(a, b) for a, b in frames]
-            cpu_lp = [lpips(a.cpu(), b.cpu()) for a, b in frames]
-        rel = max(abs(a - b) / abs(b) for a, b in zip(card_lp, cpu_lp))
-        mean_rel = abs(report["lpips"] - float(np.mean(cpu_lp))) / abs(float(np.mean(cpu_lp)))
-        dumps = len(list((out / f"{tag}_dump").glob("eval_*.png")))
-        print(f"pipeline {label}: psnr {report['psnr']:.4f}, ssim {report['ssim']:.4f}, lpips (seeded weights, not a "
-              f"quality number) {report['lpips']:.6f} against the CPU's {np.mean(cpu_lp):.6f} (relative {mean_rel:.2e}; "
-              f"per frame up to {rel:.2e}), {dumps} dumps; {report['fps']:.2f} eval fps at {SERVE_WH[0]}x{SERVE_WH[1]} "
-              f"({card})")
-        # stage 1 renders the scene the dataset was rendered from (in its frame, the deform field and SH as they were)
-        min_psnr = EVAL_MIN_PSNR if label == "eval stage 1" else -np.inf
-        if not (report["psnr"] >= min_psnr and np.isfinite(report["ssim"]) and report["lpips_available"]
-                and rel <= LPIPS_RTOL and mean_rel <= LPIPS_RTOL and dumps == n_frames):
-            raise AssertionError(f"pipeline {label}: report {report}, LPIPS relative {rel} / {mean_rel}, dumps {dumps}")
-        # the same sweep without the PNG dumps, on the same trainer (its frames already on the card)
-        bare = trainer.eval_all()
-        print(f"pipeline {label}: {bare['fps']:.2f} eval fps without --dump-images, the frames on the card ({card})")
-        result[label] = {"fps": report["fps"], "fps_no_dumps": bare["fps"], "setup_s": run["setup_s"],
-                         "work_s": run["work_s"]}
-        del trainer, run, frames
+    # 3. eval, stage 1 and stage 2, with LPIPS from seeded weights; the
+    # variable is restored after, so later evals take the sweep
+    with lpips_weights_env(seeded_lpips_weights(out / "lpips_seeded.npz")):
+        for label, flags, want in (
+            ("eval stage 1", stage1, _want_launches(rasterize_fwd=n_frames, deform_fwd=n_frames)),
+            # stage 2: the control state (the deform trunk at the init time and the frame's) and the control trunk
+            ("eval stage 2", [*stage2, "--load", control_out / "freegaussian" / "checkpoints"],
+             _want_launches(rasterize_fwd=n_frames, field_fwd=3 * n_frames)),
+        ):
+            tag = label.replace(" ", "_")
+            run = _run_verb(["eval", *flags, "--dump-images", out / f"{tag}_dump", "--report", out / f"{tag}.json"])
+            add(run)
+            _check_launches(label, run, want, {4: n_frames})  # the serving forward renders RGB+ED
+            report = json.loads((out / f"{tag}.json").read_text())
+            trainer = run["trainer"]
+            with torch.no_grad():
+                frames = [(trainer._render_rgb(cam), batch["image"][..., :3]) for cam, batch in trainer.datamanager.eval_frames()]
+                card_lp = [lpips(a, b) for a, b in frames]
+                cpu_lp = [lpips(a.cpu(), b.cpu()) for a, b in frames]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(card_lp, cpu_lp))
+            mean_rel = abs(report["lpips"] - float(np.mean(cpu_lp))) / abs(float(np.mean(cpu_lp)))
+            dumps = len(list((out / f"{tag}_dump").glob("eval_*.png")))
+            print(f"pipeline {label}: psnr {report['psnr']:.4f}, ssim {report['ssim']:.4f}, lpips (seeded weights, not a "
+                  f"quality number) {report['lpips']:.6f} against the CPU's {np.mean(cpu_lp):.6f} (relative {mean_rel:.2e}; "
+                  f"per frame up to {rel:.2e}), {dumps} dumps; {report['fps']:.2f} eval fps at {SERVE_WH[0]}x{SERVE_WH[1]} "
+                  f"({card})")
+            # stage 1 renders the scene the dataset was rendered from (in its frame, the deform field and SH as they were)
+            min_psnr = EVAL_MIN_PSNR if label == "eval stage 1" else -np.inf
+            if not (report["psnr"] >= min_psnr and np.isfinite(report["ssim"]) and report["lpips_available"]
+                    and rel <= LPIPS_RTOL and mean_rel <= LPIPS_RTOL and dumps == n_frames):
+                raise AssertionError(f"pipeline {label}: report {report}, LPIPS relative {rel} / {mean_rel}, dumps {dumps}")
+            # the same sweep without the PNG dumps, on the same trainer (its frames already on the card)
+            bare = trainer.eval_all()
+            print(f"pipeline {label}: {bare['fps']:.2f} eval fps without --dump-images, the frames on the card ({card})")
+            result[label] = {"fps": report["fps"], "fps_no_dumps": bare["fps"], "setup_s": run["setup_s"],
+                             "work_s": run["work_s"]}
+            del trainer, run, frames
 
     # 4. render: the dataset's cameras and an orbit; rgb at C = 3, depth at C = 4
     for label, flags, k in (("render dataset", [], n_frames),
@@ -3549,7 +3578,54 @@ def _time_graphed(label: str, eager, graphed, steps: int, card: str) -> dict:
     return out
 
 
-def phase_graphs(tmp: Path, data: Path, model, card: str) -> dict:
+def bench_inputs(tmp: Path, data: Path, model) -> dict:
+    """The bench scene moved into phase 13's dataset frame as a checkpoint
+    directory (`bench_scene_checkpoint`, N = 1e5 at its step, written
+    through a verb trainer of capacity VERB_CAPACITY from a small random
+    init) and a seeded cluster mask over its live rows, for phases 24 and
+    25; `base` holds the `train` verb's flags over the dataset."""
+    import torch
+
+    from freegaussian_tpu_torch import cli
+    from freegaussian_tpu_torch.preprocess.clustering import save_gaussian_mask
+
+    base = ["--data", str(data), "--config", str(HERE / "configs/sim/base.yaml"), "--capacity", str(VERB_CAPACITY),
+            "--device", DEVICE]
+    small = _write(tmp / "graphs_small.yaml", "num_random: 1000\nvis: jsonl\n")
+    scratch = cli._build_trainer(cli.build_parser().parse_args(["train", *base, "--scene-config", str(small)]), False)
+    ckpt = bench_scene_checkpoint(scratch, model, tmp / "graphs_bench")
+    alive = scratch.state.alive.cpu()
+    del scratch
+    live_mask = synthetic_mask(model.params["means"].detach()[model.alive].cpu().numpy())
+    full = torch.zeros((alive.shape[0], live_mask.shape[1]), dtype=torch.bool)
+    full[alive] = torch.from_numpy(live_mask)
+    mask = tmp / f"graphs_mask_{live_mask.shape[0]}x{live_mask.shape[1]}.npy"
+    save_gaussian_mask(mask, full, alive)
+    return {"base": base, "ckpt": ckpt, "mask": mask}
+
+
+def bench_trainer_argv(tmp: Path, data: Path, bench: dict, model, label: str, control: bool, chunk: int,
+                       steps: int, extra: str = "") -> list:
+    """The `train` (stage 1, `--load` the bench checkpoint) or
+    `train-control` (over it, with the bench mask) verb's arguments for a
+    trainer at the bench point: `steps` steps, logs every GRAPH_CHUNK, no
+    eval or save cadence, `scan_chunk` `chunk`, the binning's capacity the
+    rule's 6 slots a Gaussian; `extra` adds lines under pipeline.model."""
+    n = int(model.alive.shape[0])
+    text = (f"max_num_iterations: {steps}\nnum_random: 1000\nsteps_per_log: {GRAPH_CHUNK}\n"
+            f"steps_per_save: 0\nsteps_per_eval_image: 0\nsteps_per_eval_all_images: 0\nvis: jsonl\n"
+            f"output_dir: {tmp / f'{label}_{chunk}'}\nscan_chunk: {chunk}\n"
+            f"pipeline:\n  model:\n    isect_capacity: {6 * n}\n{extra}")
+    over = _write(tmp / f"{label}_{chunk}.yaml", text)
+    if not control:
+        return ["train", *bench["base"], "--scene-config", str(over), "--load", str(bench["ckpt"])]
+    return ["train-control", "--data", str(data), "--config", str(HERE / "configs/control/sim/base.yaml"),
+            "--scene-config", str(over), "--stage1-checkpoint", str(bench["ckpt"]),
+            "--gaussian-mask", str(bench["mask"]), "--deform-impl", STAGE2_IMPL, "--capacity", str(VERB_CAPACITY),
+            "--device", DEVICE]
+
+
+def phase_graphs(tmp: Path, data: Path, model, card: str, bench: dict) -> dict:
     """Phase 24 (`graphs` lines): `check_slot_lists`, then stage 1 and stage
     2 with `scan_chunk` GRAPH_CHUNK (two chunks, each chunk CUDA-graph
     replays; stage 1 with one refinement inside the second chunk) against
@@ -3567,40 +3643,14 @@ def phase_graphs(tmp: Path, data: Path, model, card: str) -> dict:
     import torch
 
     from freegaussian_tpu_torch import cli
-    from freegaussian_tpu_torch.preprocess.clustering import save_gaussian_mask
 
     out = {"slots": check_slot_lists(model, card)}
-    n = int(model.alive.shape[0])
-    # a verb trainer (from a small random init) writes the bench checkpoint and the mask
-    base = ["--data", str(data), "--config", str(HERE / "configs/sim/base.yaml"), "--capacity", str(VERB_CAPACITY),
-            "--device", DEVICE]
-    small = _write(tmp / "graphs_small.yaml", "num_random: 1000\nvis: jsonl\n")
-    scratch = cli._build_trainer(cli.build_parser().parse_args(["train", *base, "--scene-config", str(small)]), False)
-    ckpt = bench_scene_checkpoint(scratch, model, tmp / "graphs_bench")
-    alive = scratch.state.alive.cpu()
-    del scratch
-    live_mask = synthetic_mask(model.params["means"].detach()[model.alive].cpu().numpy())
-    full = torch.zeros((alive.shape[0], live_mask.shape[1]), dtype=torch.bool)
-    full[alive] = torch.from_numpy(live_mask)
-    mask = tmp / f"graphs_mask_{live_mask.shape[0]}x{live_mask.shape[1]}.npy"
-    save_gaussian_mask(mask, full, alive)
-
     launch_total = {k: 0 for k in launches()}
     for label, control in (("stage1", False), ("stage2", True)):
         def argv_for(chunk, label=label, control=control):
-            text = (f"max_num_iterations: {GRAPH_STEPS}\nnum_random: 1000\nsteps_per_log: {GRAPH_CHUNK}\n"
-                    f"steps_per_save: 0\nsteps_per_eval_image: 0\nsteps_per_eval_all_images: 0\nvis: jsonl\n"
-                    f"output_dir: {tmp / f'graphs_{label}_{chunk}'}\nscan_chunk: {chunk}\n"
-                    f"pipeline:\n  model:\n    isect_capacity: {6 * n}\n")
-            over = tmp / f"graphs_{label}_{chunk}.yaml"
-            if not control:
-                refine_at = model.step + GRAPH_REFINE_AT
-                text += f"    refine_start: {refine_at}\n    refine_every: {GRAPH_REFINE_AT}\n"
-                return ["train", *base, "--scene-config", str(_write(over, text)), "--load", str(ckpt)]
-            return ["train-control", "--data", str(data), "--config", str(HERE / "configs/control/sim/base.yaml"),
-                    "--scene-config", str(_write(over, text)), "--stage1-checkpoint", str(ckpt),
-                    "--gaussian-mask", str(mask), "--deform-impl", STAGE2_IMPL, "--capacity", str(VERB_CAPACITY),
-                    "--device", DEVICE]
+            refine_at = model.step + GRAPH_REFINE_AT
+            extra = "" if control else f"    refine_start: {refine_at}\n    refine_every: {GRAPH_REFINE_AT}\n"
+            return bench_trainer_argv(tmp, data, bench, model, f"graphs_{label}", control, chunk, GRAPH_STEPS, extra)
 
         # `scan_chunk` 0 and GRAPH_CHUNK from one seed: the same initial state and frames
         eager, graphed = (cli._build_trainer(cli.build_parser().parse_args(argv_for(chunk)), control)
@@ -3627,6 +3677,109 @@ def phase_graphs(tmp: Path, data: Path, model, card: str) -> dict:
         out[label] = {"check": _hold_graphed(label, eager, graphed, card),
                       "time": _time_graphed(label, eager, graphed, GRAPH_STEPS, card)}
         del eager, graphed
+    out["launches"] = launch_total
+    return out
+
+
+# Phase 25, the eval sweep
+SWEEP_ROUNDS = 5  # timed eval_all calls of the sweep and of the loop, in turns
+SWEEP_MAX_DIFF = 1e-5  # each frame's PSNR and SSIM, the sweep against the loop on the same trainer
+
+
+def _loop_eval(trainer) -> dict:
+    """`eval_all` down its per-frame loop (the path a mixed-size split
+    takes): the arena hook answers None for this call."""
+    trainer._eval_arena = lambda dm, max_images: None
+    try:
+        return trainer.eval_all()
+    finally:
+        del trainer._eval_arena
+
+
+def phase_sweep(tmp: Path, data: Path, model, card: str, bench: dict) -> dict:
+    """Phase 25 (`sweep` lines): the eval sweep of stage 1 and stage 2 at the
+    bench point, on trainers built as phase 24's (the verbs' trainers over
+    phase 13's 8-frame 640x480 dataset with the bench scene loaded, 1e5
+    Gaussians, the binning's capacity 6e5), with LPIPS off. The first
+    `eval_all` captures the sweep's graph (its first frame the eager
+    warm-up), the second replays it 8 times; launches are zeroed before
+    each and read after (a replay adds its graph's captured launches to the
+    counters). Each frame's PSNR and SSIM against the per-frame loop's on
+    the same trainer; then eval_all with the sweep and with the loop in
+    turns, SWEEP_ROUNDS each (host clock around the call, which ends in its
+    host copies), and one profiler window of each."""
+    import torch
+
+    from freegaussian_tpu_torch import cli
+    from freegaussian_tpu_torch.models.metrics import lpips_available
+    from freegaussian_tpu_torch.models.splat_model import psnr
+    from freegaussian_tpu_torch.models.ssim import ssim
+
+    out = {}
+    launch_total = dict.fromkeys(launches(), 0)
+    with lpips_weights_env(tmp / "sweep_no_lpips_weights.npz"):
+        if lpips_available(DEVICE):
+            raise AssertionError("sweep: LPIPS weights load, so eval_all would take its loop")
+        for label, control in (("stage1", False), ("stage2", True)):
+            argv = bench_trainer_argv(tmp, data, bench, model, f"sweep_{label}", control, 0, 0)
+            t = cli._build_trainer(cli.build_parser().parse_args(argv), control)
+            n = DATA_FRAMES
+            want = (_want_launches(rasterize_fwd=n, field_fwd=3 * n) if control
+                    else _want_launches(rasterize_fwd=n, deform_fwd=n))
+            calls = {}
+            for call in ("first", "warm"):
+                torch.cuda.synchronize()
+                zero_launches()
+                t0 = time.perf_counter()
+                report = t.eval_all()
+                calls[call] = {"wall_s": time.perf_counter() - t0, "fps": report["fps"], "launches": launches(),
+                               "replays": t.eval_graph_stats["replays"]}
+                for k, v in calls[call]["launches"].items():
+                    launch_total[k] += v
+            stats = dict(t.eval_graph_stats)
+            dm = t.eval_datamanager or t.datamanager
+            table = t._eval_sweep(t._eval_arena(dm, None)).run()
+            with torch.no_grad():
+                loop = np.array([(float(psnr(rgb, gt)), float(ssim(rgb, gt))) for rgb, gt in
+                                 ((t._render_rgb(cam), b["image"][..., :3]) for cam, b in dm.eval_frames())])
+            diff = np.abs(table - loop).max(0)
+            print(f"sweep {label}: {n} frames at {SERVE_WH[0]}x{SERVE_WH[1]}; graphs captured {stats['captures']} "
+                  f"({stats['capture_s']:.3f} s), replays {calls['first']['replays']} in the first call, "
+                  f"{calls['warm']['replays'] - calls['first']['replays']} in the warm one; launches first "
+                  f"{json.dumps(calls['first']['launches'])}, warm {json.dumps(calls['warm']['launches'])}; per frame "
+                  f"psnr {table[:, 0].round(4).tolist()}, against the loop max |diff| psnr {diff[0]:.3g}, ssim "
+                  f"{diff[1]:.3g} (budget {SWEEP_MAX_DIFF}); mean psnr {report['psnr']:.4f}, ssim {report['ssim']:.4f} "
+                  f"({card})")
+            min_psnr = EVAL_MIN_PSNR if not control else -np.inf
+            ok = (diff.max() <= SWEEP_MAX_DIFF and report["psnr"] >= min_psnr and report["lpips_available"] is False
+                  and table.shape == (n, 2))
+            if t.device.type == "cuda":  # on the CPU (a rehearsal) the frames run eagerly, uncounted
+                ok = ok and (stats["captures"] == 1 and calls["first"]["replays"] == n - 1
+                             and calls["warm"]["replays"] - calls["first"]["replays"] == n
+                             and calls["first"]["launches"] == want and calls["warm"]["launches"] == want)
+            if not ok:
+                raise AssertionError(f"sweep {label}: {stats}, calls {calls}, want launches {want}, diff {diff}, "
+                                     f"report {report}")
+
+            walls = {"sweep": [], "loop": []}
+            for r in range(SWEEP_ROUNDS):
+                for path in (("sweep", "loop") if r % 2 == 0 else ("loop", "sweep")):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    (t.eval_all if path == "sweep" else lambda: _loop_eval(t))()
+                    walls[path].append(time.perf_counter() - t0)
+            if t.eval_graph_stats["captures"] != stats["captures"]:
+                raise AssertionError(f"sweep {label}: captured again in the timed calls: {t.eval_graph_stats}")
+            timing = {path: {"fps": [n / w for w in ws], "median_fps": n / statistics.median(ws)}
+                      for path, ws in walls.items()}
+            timing["first_call"] = {"fps": n / calls["first"]["wall_s"], "wall_s": calls["first"]["wall_s"]}
+            timing["capture_s"] = stats["capture_s"]
+            for path, fn in (("sweep", t.eval_all), ("loop", lambda: _loop_eval(t))):
+                window = _device_window(fn, 2)
+                timing[path].update(window)  # per call: a sweep of n frames
+            print(f"sweep {label} time: {json.dumps(timing)} ({card})")
+            out[label] = {"calls": calls, "max_abs_diff": diff.tolist(), "time": timing}
+            del t
     out["launches"] = launch_total
     return out
 
@@ -3689,9 +3842,13 @@ def main():
         t_bands = time.perf_counter()
         parallel = phase_parallel(model, ckpt)
         t_parallel = time.perf_counter()
-        graphs = phase_graphs(Path(tmp), data, model, card)
-        print(f"phases 21-24: extras {t_extras - t_new:.1f} s, bands {t_bands - t_extras:.1f} s, "
-              f"parallel {t_parallel - t_bands:.1f} s, graphs {time.perf_counter() - t_parallel:.1f} s")
+        bench = bench_inputs(Path(tmp), data, model)
+        graphs = phase_graphs(Path(tmp), data, model, card, bench)
+        t_graphs = time.perf_counter()
+        sweep = phase_sweep(Path(tmp), data, model, card, bench)
+        print(f"phases 21-25: extras {t_extras - t_new:.1f} s, bands {t_bands - t_extras:.1f} s, "
+              f"parallel {t_parallel - t_bands:.1f} s, graphs {t_graphs - t_parallel:.1f} s, "
+              f"sweep {time.perf_counter() - t_graphs:.1f} s")
     print(
         f"train verb median step {verb['median_step_ms']:.2f} ms against phase 7's bare step "
         f"{train['median_step_ms']:.2f} ms in this run ({verb['median_step_ms'] / train['median_step_ms']:.2f}x); "
@@ -3733,9 +3890,10 @@ def main():
                               trunk["launches"][name], trunk[mode]["max_abs_err"], trunk[mode]))
     assert [r["name"] for r in records] == list(launches())
     # phase 19's verbs (rows 1, 6 and 8, the 5 control steps' backwards); phases 20, 21 and 23's (rows 1, 2, 8, 9);
-    # phase 24's graphed chunks (rows 1, 2, 8, 9 in stage 1, 1, 2, 6, 7 in stage 2; replays included)
+    # phase 24's graphed chunks (rows 1, 2, 8, 9 in stage 1, 1, 2, 6, 7 in stage 2; replays included);
+    # phase 25's eval sweeps (rows 1 and 8 in stage 1, 1 and 6 in stage 2; replays included)
     for r in records:
-        r["launches"] += sum(run["launches"][r["name"]] for run in (pipeline, captures, extras, parallel, graphs))
+        r["launches"] += sum(run["launches"][r["name"]] for run in (pipeline, captures, extras, parallel, graphs, sweep))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(

@@ -87,17 +87,28 @@ class ControlTrainer(Trainer):
         camera, batch = self._downscale_batch(camera, batch, downscale_phase(cfg.splat, i))
         return self.control_step_fn(self.state, camera, batch, sh_degree_to_use(cfg.splat, i))
 
-    @torch.no_grad()
-    def _render_rgb(self, camera) -> torch.Tensor:
-        """Stage-2 single-image render (the train-mode control state: the
-        deform field's displacement between the init time and the frame's),
-        so the inherited eval cadences render through the control model (the
-        JAX package's `_control_eval_render`)."""
-        st = self.state
-        return control_forward(
-            self.config.splat, st.params, st.alive, self.gaussian_mask, camera, st.control,
-            deform=st.deform, init_time=self.init_time, sh_degree_now=self.config.splat.sh_degree, train=False,
-        )["rgb"]
+    def _eval_scan_key(self) -> tuple:
+        """The stage-2 render also captures the cluster mask and the init
+        time: a replaced mask or a new first frame rebuilds the sweep."""
+        return (id(self.config), id(self.gaussian_mask), float(self.init_time))
+
+    def _eval_scan_render(self):
+        """The stage-2 eval render (the train-mode control state: the deform
+        field's displacement between the init time and the frame's), so the
+        inherited eval paths render through the control model (the JAX
+        package's `_control_eval_render` and `_eval_scan_render`). The init
+        time is put on the device once, here, so a captured render copies
+        nothing from the host."""
+        cfg, mask = self.config, self.gaussian_mask
+        init_t = torch.tensor(self.init_time, dtype=torch.float32, device=self.device)
+
+        def render(state, camera):
+            return control_forward(
+                cfg.splat, state.params, state.alive, mask, camera, state.control,
+                deform=state.deform, init_time=init_t, sh_degree_now=cfg.splat.sh_degree, train=False,
+            )["rgb"]
+
+        return render
 
     def viewer_num_attributes(self) -> int:
         # the mask is (N, M): attribute channels only (knn_gaussian.py:128)

@@ -16,8 +16,12 @@ up to that many steps over a device arena of the frames (the JAX package's
 each chunk is CUDA-graph replays of the step (`_ChunkRunner`: one graph per
 downscale phase, SH degree, capacity and step variant, captured after an
 eager warm-up step, with no host synchronisation inside the chunk), on the
-CPU the same steps run eagerly. Left out: the stacked eval arena (eval
-renders frame by frame).
+CPU the same steps run eagerly. `eval_all` sweeps the eval split as the JAX
+package's does: without LPIPS or image dumps, over a device arena of
+frames of one size (`_eval_arena`), it runs render + PSNR + SSIM for every
+frame with no host synchronisation between frames (`_EvalSweep`: on the card
+one CUDA graph of a frame, replayed once a frame; on the CPU the same frame
+body run eagerly), else it loops frame by frame.
 """
 
 from __future__ import annotations
@@ -165,6 +169,9 @@ class Trainer:
         self.optimizers = make_optimizers(config.optimizers)
         self._arenas: Dict[int, DeviceArena] = {}
         self.graph_stats = {"captures": 0, "capture_s": 0.0, "replays": 0, "replayed_launches": {}}
+        self.eval_graph_stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
+        self._eval_arena_cache: Optional[tuple] = None
+        self._eval_sweep_cache: Optional[tuple] = None
         self.state = create_train_state(
             params, alive, deform.to(dev), self.optimizers, generator=self.generator,
             camera_opt=camera_opt, bilagrid=bilagrid,
@@ -215,12 +222,29 @@ class Trainer:
 
     @torch.no_grad()
     def _render_rgb(self, camera: Camera) -> torch.Tensor:
-        st = self.state
-        return forward(
-            self.config.splat, st.params, st.alive, camera,
-            deform=st.deform, sh_degree_now=self.config.splat.sh_degree,
-            warmed_up=st.step >= self.config.splat.warm_up, train=False,
-        )["rgb"]
+        return self._eval_scan_render()(self.state, camera)
+
+    def _eval_scan_render(self):
+        """render(state, camera) -> rgb, the eval render of `_render_rgb`
+        and of the eval sweep; ControlTrainer overrides it to render through
+        the control model."""
+        cfg = self.config  # held by the closure, so `_eval_scan_key`'s id stays its own
+
+        def render(state, camera):
+            splat = cfg.splat
+            return forward(
+                splat, state.params, state.alive, camera, deform=state.deform, sh_degree_now=splat.sh_degree,
+                warmed_up=state.step >= splat.warm_up, train=False,
+            )["rgb"]
+
+        return render
+
+    def _eval_scan_key(self) -> tuple:
+        """Identities of every object the `_eval_scan_render` closure
+        captures: the sweep cache key must change when any of them is
+        replaced, or a cached sweep renders stale captures. Subclasses whose
+        render captures more extend it."""
+        return (id(self.config),)
 
     def viewer_render_fn(self):
         """render_fn(camera, atrb_values|None) -> (H, W, 3) rgb over the
@@ -549,17 +573,73 @@ class Trainer:
         gt = batch["image"][..., :3]
         return {"step": step, "eval": "image", "eval_idx": idx, "psnr": float(psnr(rgb, gt)), "ssim": float(ssim(rgb, gt))}
 
+    def _eval_arena(self, dm: FullImageDatamanager, max_images: Optional[int]) -> Optional[DeviceArena]:
+        """The eval split's first `max_images` frames stacked on the device
+        (camera fields and `image[..., :3]`), or None for an empty split or
+        one of mixed sizes, which `eval_all` loops over frame by frame. Keyed
+        on the datamanager object, which the cache holds: a new datamanager
+        that reused a collected one's id would otherwise get its frames."""
+        key = (dm, max_images)
+        cached = self._eval_arena_cache
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        cams, gts = [], []
+        for camera, batch in dm.eval_frames():
+            cams.append(camera)
+            gts.append({"image": batch["image"][..., :3]})
+            if max_images and len(cams) >= max_images:
+                break
+        arena = None
+        if cams and len({(c.height, c.width) for c in cams}) == 1:
+            arena = DeviceArena.stack(cams, None, gts)
+        self._eval_arena_cache = (key, arena)
+        return arena
+
+    def _eval_sweep(self, arena: DeviceArena) -> "_EvalSweep":
+        """The sweep of `arena` at the current state, rebuilt when anything
+        its render captures changes: the `_eval_scan_key` objects, the state
+        object, the arena (its frames, their count and size), the SH degree, and the
+        warm-up gate, which a graph captured before warm-up must not replay
+        after. The sweep holds every object whose id is in its key."""
+        splat = self.config.splat
+        key = self._eval_scan_key() + (id(self.state), id(arena), splat.sh_degree, self.state.step >= splat.warm_up)
+        cached = self._eval_sweep_cache
+        if cached is None or cached[0] != key:
+            self._eval_sweep_cache = cached = (key, _EvalSweep(self, arena, self._eval_scan_render()))
+        return cached[1]
+
     def eval_all(self, max_images: Optional[int] = None, dump_dir: Optional[Path] = None) -> Dict[str, float]:
         """PSNR / SSIM / LPIPS and rays per second over the eval split (ref
         eval loop, freegaussian_pipeline.py:103-172). LPIPS runs on the
         device when its local weights file exists (`models/metrics.py`);
         without it the report carries NaN with lpips_available False, as the
         JAX package's does. `dump_dir` writes gt|pred side-by-side PNGs per
-        image (ref :144-147)."""
-        from ..models.metrics import lpips
+        image (ref :144-147).
+
+        Without LPIPS and dumps, an eval split of one frame size is swept on
+        the device (`_EvalSweep`) with one host copy, as the JAX package's
+        one-dispatch sweep; LPIPS and the dumps need each frame on the host,
+        so they keep the per-frame loop, as do empty and mixed-size splits."""
+        from ..models.metrics import lpips, lpips_available
         from ..viewer.png import encode_png
 
         dm = self.eval_datamanager or self.datamanager
+        if dump_dir is None and not lpips_available(self.device):
+            arena = self._eval_arena(dm, max_images)
+            if arena is not None:
+                t0 = time.time()
+                table = self._eval_sweep(arena).run()
+                wall = max(time.time() - t0, 1e-9)
+                n = table.shape[0]
+                return {
+                    "psnr": float(np.mean(table[:, 0])),
+                    "ssim": float(np.mean(table[:, 1])),
+                    "num_rays_per_sec": n * arena.width * arena.height / wall,
+                    "fps": n / wall,
+                    "gaussian_count": int(self.state.alive.sum()),
+                    "lpips": float("nan"),
+                    "lpips_available": False,
+                }
         if dump_dir is not None:
             Path(dump_dir).mkdir(parents=True, exist_ok=True)
         psnrs, ssims, lpipss = [], [], []
@@ -599,7 +679,42 @@ class Trainer:
 
     def load(self, path: Path, step: Optional[int] = None) -> None:
         self.state = load_checkpoint(Path(path), self.state, step)
-        self._runners = {}  # the loaded state's tensors are new: graphs of the old ones are stale
+        # the loaded state's tensors are new: graphs of the old ones are stale
+        self._runners = {}
+        self._eval_sweep_cache = None
+
+
+_LAUNCH_TABLES = {name: table for table in (rasterize_cuda.LAUNCHES, mlp_cuda.LAUNCHES) for name in table}
+
+
+def _warm_up(dev: torch.device, body) -> None:
+    """`body` run eagerly on a side stream, as a capture's warm-up must."""
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(dev).wait_stream(side)
+
+
+def _capture(body, generator: Optional[torch.Generator] = None, pool=None):
+    """`body` captured as a CUDA graph (in `pool`; `generator` registered so
+    that a replay draws what the eager body would). The capture launches no
+    kernel, so the launch counters are set back after it. Returns (graph,
+    capture seconds, each kernel's launches a replay)."""
+    before = {name: table[name] for name, table in _LAUNCH_TABLES.items()}
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph, pool=pool):
+        body()
+    seconds = time.perf_counter() - t0
+    captured = {}
+    for name, table in _LAUNCH_TABLES.items():
+        if table[name] != before[name]:
+            captured[name] = table[name] - before[name]
+            table[name] = before[name]
+    return graph, seconds, captured
 
 
 class _ChunkRunner:
@@ -671,30 +786,14 @@ class _ChunkRunner:
             for name, c in launches.items():
                 stats["replayed_launches"][name] = stats["replayed_launches"].get(name, 0) + c
             return
-        dev = t.device
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._body(variant)  # the warm-up is this step, run eagerly
-        torch.cuda.current_stream(dev).wait_stream(side)
+        _warm_up(t.device, lambda: self._body(variant))  # the warm-up is this step, run eagerly
         counts = {g: s.count for g, s in st.opt_states.items()}
-        launches = {**rasterize_cuda.LAUNCHES, **mlp_cuda.LAUNCHES}
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(st.generator)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self.pool):
-            self._body(variant)
-        t.graph_stats["capture_s"] += time.perf_counter() - t0
+        graph, seconds, captured = _capture(lambda: self._body(variant), st.generator, self.pool)
+        t.graph_stats["capture_s"] += seconds
         t.graph_stats["captures"] += 1
         count_delta = {g: s.count - counts[g] for g, s in st.opt_states.items() if s.count != counts[g]}
         for g in count_delta:
             st.opt_states[g].count = counts[g]
-        captured = {}
-        for table in (rasterize_cuda.LAUNCHES, mlp_cuda.LAUNCHES):
-            for name in table:
-                if table[name] != launches[name]:
-                    captured[name] = table[name] - launches[name]
-                    table[name] = launches[name]
         self.pool = graph.pool()
         self.graphs[variant] = (graph, count_delta, captured)
 
@@ -721,3 +820,71 @@ class _ChunkRunner:
                         self.metrics[j, self.keys.index(name)] = v.float()
         out = self.metrics[:n].cpu().numpy()
         return {name: out[:, c] for c, name in enumerate(self.keys)}
+
+
+class _EvalSweep:
+    """PSNR and SSIM of every frame of an eval arena at the trainer's state
+    (the JAX package's `_eval_sweep_fn`, a `lax.scan` over the frames in one
+    dispatch). A frame reads its index at a device cursor, selects its
+    camera and ground truth from the arena, renders (`render`, the
+    trainer's `_eval_scan_render`), writes (psnr, ssim) into its row of an
+    (F, 2) device table and advances the cursor; the table comes to the host
+    once a sweep.
+
+    On the card the frame is captured once as a CUDA graph, as
+    `_ChunkRunner` captures a step: the first sweep's first frame runs
+    eagerly on a side stream (the warm-up, which also builds the kernels),
+    then the frame is captured, and every later frame replays the graph,
+    back to back with no host synchronisation. The eval render draws no
+    random numbers, so no generator is registered. The capture launches no
+    kernel, so the launch counters are set back after it, and each replay
+    adds the graph's captured launches to them. The graph keeps its own
+    memory pool. A capture or replay error raises: there is no eager
+    fallback. On the CPU every frame runs eagerly."""
+
+    def __init__(self, trainer: Trainer, arena: DeviceArena, render):
+        self.trainer = trainer
+        self.state = trainer.state
+        self.arena = arena
+        self.render = render
+        dev = trainer.device
+        self.cursor = torch.zeros(1, dtype=torch.long, device=dev)
+        self.table = torch.zeros((arena.cameras["c2w"].shape[0], 2), device=dev)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: Dict[str, int] = {}  # each kernel's launches a replay
+
+    @torch.no_grad()
+    def _frame(self) -> None:
+        k = self.cursor
+        camera, _, batch = self.arena.select(k)
+        rgb = self.render(self.state, camera)
+        gt = batch["image"]
+        self.table.index_copy_(0, k, torch.stack([psnr(rgb, gt), ssim(rgb, gt)])[None])
+        self.cursor.add_(1)
+
+    def _capture(self) -> None:
+        """The warm-up frame, then the frame's graph."""
+        _warm_up(self.trainer.device, self._frame)
+        self.graph, seconds, self.launches = _capture(self._frame)
+        stats = self.trainer.eval_graph_stats
+        stats["capture_s"] += seconds
+        stats["captures"] += 1
+
+    def run(self) -> np.ndarray:
+        """(F, 2) float64: each frame's (psnr, ssim)."""
+        n = self.table.shape[0]
+        self.cursor.zero_()
+        if self.trainer.device.type != "cuda":
+            for _ in range(n):
+                self._frame()
+        else:
+            replays = n
+            if self.graph is None:
+                self._capture()
+                replays -= 1
+            for _ in range(replays):
+                self.graph.replay()
+                for name, count in self.launches.items():
+                    _LAUNCH_TABLES[name][name] += count
+            self.trainer.eval_graph_stats["replays"] += replays
+        return self.table.cpu().numpy().astype(np.float64)

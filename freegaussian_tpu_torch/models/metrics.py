@@ -3,9 +3,9 @@ of lpips v0.1 ('alex'), the perceptual metric the reference reports per
 eval image (freegaussian_model.py:1005-1051).
 
 It needs pretrained weights, and the port fetches none. `lpips()` runs when
-a local weights file exists, in the JAX package's npz layout
-(`conv{i}_w` (O, I, Kh, Kw), `conv{i}_b` (O,), `lin{i}` (C,) for i in
-0..4): `$FREEGAUSSIAN_LPIPS_WEIGHTS`, else
+a local weights file exists (`lpips_available()`), in the JAX package's
+npz layout (`conv{i}_w` (O, I, Kh, Kw), `conv{i}_b` (O,), `lin{i}` (C,) for
+i in 0..4): `$FREEGAUSSIAN_LPIPS_WEIGHTS`, else
 `~/.cache/freegaussian/lpips_alex.npz` (the JAX package's
 scripts/export_lpips_weights.py writes one on a machine with the `lpips`
 package). Without it, `lpips()` returns None and eval reports carry NaN
@@ -73,6 +73,13 @@ def _network(device: torch.device) -> Optional[dict]:
                 warnings.warn(f"LPIPS weights at {path} failed to load: {e}")
         _nets[key] = net
     return _nets[key]
+
+
+def lpips_available(device="cpu") -> bool:
+    """True where the weights file of `default_weights_path()` loads (onto
+    `device`, where `lpips()` then finds them): the JAX package's gate, by
+    which `eval_all` keeps its per-frame loop when LPIPS runs."""
+    return _network(torch.device(device)) is not None
 
 
 def _features(x: torch.Tensor, convs) -> list:

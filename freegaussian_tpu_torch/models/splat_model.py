@@ -29,7 +29,7 @@ import torch
 import torch.nn as nn
 
 from ..data.cameras import Camera
-from ..ops.math import num_sh_bases, safe_norm
+from ..ops.math import device_constant, num_sh_bases, safe_norm
 from ..ops.projection import project_gaussians
 from ..ops.rasterize import rasterization
 from .bilagrid import slice_bilateral_grid
@@ -124,12 +124,10 @@ def sh_degree_to_use(cfg: SplatConfig, step: int) -> int:
 
 def background_color(cfg: SplatConfig, device: torch.device) -> torch.Tensor:
     """The serving background ("random" serves the viser default; the train
-    step draws its own)."""
-    if cfg.background_color == "random":
-        return torch.tensor([0.1490, 0.1647, 0.2157], device=device)
-    if cfg.background_color == "white":
-        return torch.ones(3, device=device)
-    return torch.zeros(3, device=device)
+    step draws its own), a `device_constant`: a captured render copies
+    nothing from the host."""
+    values = {"random": (0.1490, 0.1647, 0.2157), "white": (1.0, 1.0, 1.0)}.get(cfg.background_color, (0.0, 0.0, 0.0))
+    return device_constant(values, torch.float32, device)
 
 
 def forward(

@@ -230,9 +230,19 @@ class ViewerServer:
 
         return Handler
 
-    def start_background(self):
+    def _bind(self) -> None:
         self._httpd = ThreadingHTTPServer((self.host, self.port), self._handler())
-        self.port = self._httpd.server_address[1]
+        self.port = self._httpd.server_address[1]  # port 0 binds a free one
+
+    def serve_forever(self):
+        """Serve on the calling thread until `shutdown()` (from another
+        thread)."""
+        self._bind()
+        print(f"viewer at http://localhost:{self.port}")
+        self._httpd.serve_forever()
+
+    def start_background(self):
+        self._bind()
         self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
         self._thread.start()
         return self._thread
