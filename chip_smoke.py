@@ -41,7 +41,18 @@ world size 1, with every kernel built from this checkout. Phases, printed as eac
               bytes the latter moves at its tile sizes), and two calls of
               each backward compared bit for bit; the error of the
               per-Gaussian reduction of the backward's rows (f32 prefix
-              sums) against a float64 sum at tile 32
+              sums) against a float64 sum at tile 32; then the deform
+              field at the trainer's shape (`kernel deform live` lines):
+              2^18 rows, the 1e5 means and stale copies, with 1e5 live at
+              the head and again holed over two of every three 128-row
+              blocks: the kernels with the mask against the plain versions
+              with it on the live rows, the rows of live blocks bit-equal
+              to the padded call (no mask) in the output and dx, the dead
+              blocks zero, two calls bit-equal; ms with the mask and
+              without it, the block list's ms, the backward's two launches,
+              and the bound at the live count; and the split-linear chain
+              (`DeformField(impl="split")`, cuBLAS) at 1e5 and 2^18 rows
+              as a reference reading
   5. serve    the serving path: the HTTP viewer answers GET /render (JPEG) at
               640x480 (tile 32), then at the native 1296x968 (tile 16 and
               32), each frame through the deform field's forward and the
@@ -71,7 +82,9 @@ world size 1, with every kernel built from this checkout. Phases, printed as eac
               means and the timenet row): max |diff|, the share of elements
               outside the budget, kernel ms (training and serving modes),
               plain ms and the bound; the backward's launches timed apart
-              and two calls compared bit for bit, as in phase 4
+              and two calls compared bit for bit, as in phase 4; each
+              mode at the trainer's shape as phase 4's deform field
+              (`kernel field (control|deform) live` lines)
  10. serve2   the stage-2 serving path: the slider viewer answers GET
               /render with non-zero sliders at 640x480 (tile 32); latency,
               and launches zeroed before the requests and read after (one
@@ -108,7 +121,8 @@ world size 1, with every kernel built from this checkout. Phases, printed as eac
  17. trunk    the deform field with per-point times at N = 1e5 (its trunk
               on the precomputed embedding) forward and backward, launches;
               the kernel pair against its plain versions, ms, bound, and the
-              backward's launches as in phase 4
+              backward's launches as in phase 4, and at the trainer's shape
+              (`kernel trunk live` lines)
  18. viewer   the `viewer` verb in process (`cli.serve_viewer`) over the
      verb     `train` verb's checkpoint directory (stage 1: `--data --load`)
               and over the `train-control` verb's (stage 2:
@@ -614,6 +628,119 @@ def field_bwd_parts(kind: str, bwd_fn, bargs, launch_args) -> dict:
     return out
 
 
+# The trainer's shape for the field kernels: the verbs' capacity (2^18
+# padded rows) with the bench scene's 1e5 live, at the head and with holes
+TRAINER_ROWS = 1 << 18
+
+
+def trainer_rows(t, n_live: int, seed: int):
+    """`t`'s first n_live rows, then stale rows up to TRAINER_ROWS: copies
+    of seeded picks of them, as dead slots keep old values."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pick = torch.randint(0, n_live, (TRAINER_ROWS - n_live,), generator=g).to(t.device)
+    return torch.cat([t[:n_live], t[pick]]).contiguous()
+
+
+def trainer_masks(n_live: int, device) -> dict:
+    """The trainer's alive masks over TRAINER_ROWS: "head", the first n_live
+    rows (a fresh init); "holed", n_live rows drawn over two of every three
+    128-row blocks (the third dead), as refinement leaves them."""
+    import torch
+
+    rows = torch.arange(TRAINER_ROWS)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 29)
+    candidates = torch.nonzero((rows // 128) % 3 != 1)[:, 0]
+    holed = torch.zeros(TRAINER_ROWS, dtype=torch.bool)
+    holed[candidates[torch.randperm(candidates.shape[0], generator=g)[:n_live]]] = True
+    return {"head": (rows < n_live).to(device), "holed": holed.to(device)}
+
+
+def _check_live_rows(label: str, n_live: int, fwd, plain, bwd, bwd_plain, lead, bargs_of, launch_of, bound,
+                     bf16_cot: bool, seed: int) -> dict:
+    """One field kernel pair at the trainer's shape (`lead`: the forward's
+    leading arguments with TRAINER_ROWS rows; `bargs_of(dout, emb, acts)`
+    the backward's arguments, `launch_of(bargs)` `mlp_cuda.launch_bwd`'s
+    leading ones) under each of `trainer_masks` (n_live rows): against the
+    plain versions with the same mask on the live rows (phase 4's
+    budgets), the rows of live blocks bit-equal to the padded call (no
+    mask) in the output and dx, zeros on the dead blocks, two calls
+    bit-equal; then the ms of the forward (training and serving modes) and
+    the backward with the mask, without it (every padded row), the block
+    list's own ms and the backward's two launches, beside `bound(n_live,
+    backward)`, the least time for the live rows. Returns the lines."""
+    import torch
+
+    from freegaussian_tpu_torch.ops import mlp_cuda as mc
+
+    n = lead[0].shape[0]
+    out0, (emb0, acts0) = fwd(*lead, True)
+    padded = dict(ms=cuda_ms(lambda: fwd(*lead, True), reps=25), serve_ms=cuda_ms(lambda: fwd(*lead, False), reps=25))
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cot = torch.randn(out0.shape, generator=g).to(out0.device)
+    if bf16_cot:
+        cot = cot.bfloat16().float()
+    got0 = bwd(*bargs_of(cot, emb0, acts0))
+    padded["bwd_ms"] = cuda_ms(lambda: bwd(*bargs_of(cot, emb0, acts0)), reps=25)
+    lines = {}
+    for name, live in trainer_masks(n_live, out0.device).items():
+        blocks = mc.live_blocks(live)
+        keep = mc._live_block_rows(live)[:n]
+        out, (emb, acts) = fwd(*lead, True, live=live, blocks=blocks)
+        again, _ = fwd(*lead, True, live=live, blocks=blocks)
+        want, _ = plain(*lead, True, live=live)
+        torch.cuda.synchronize()
+        mx, nm = _rel_errs(out[live].float(), want[live].float())
+        fwd_line = dict(
+            max_rel=mx, norm_rel=nm, max_abs_err=float((out[live].float() - want[live].float()).abs().max()),
+            live_rows_equal_padded=bool(torch.equal(out[keep], out0[keep])), dead_zero=not bool(out[~keep].any()),
+            bit_equal=bool(torch.equal(out, again)), finite=bool(torch.isfinite(out).all()),
+            ms=cuda_ms(lambda: fwd(*lead, True, live=live, blocks=blocks), reps=25),
+            serve_ms=cuda_ms(lambda: fwd(*lead, False, live=live, blocks=blocks), reps=25),
+        )
+        fwd_line["bound_ms"], fwd_line["bound_by"] = bound(int(live.sum()), False)
+        dout = cot * live[:, None]  # the callers' cotangents are zeros on dead rows
+        bargs = bargs_of(dout, emb, acts)
+        got = bwd(*bargs, live=live, blocks=blocks)
+        got_again = bwd(*bargs, live=live, blocks=blocks)
+        want_b = bwd_plain(*bargs, live=live)
+        ref = bwd(*bargs_of(dout, emb0, acts0))  # the padded call on the same cotangent
+        torch.cuda.synchronize()
+        errs = {i: _rel_errs(a, b) for i, (a, b) in enumerate(zip(got, want_b)) if a is not None}
+        bwd_line = dict(
+            errs=errs, max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, want_b) if a is not None),
+            errs_vs_padded={i: _rel_errs(a, b) for i, (a, b) in enumerate(zip(got, ref)) if a is not None},
+            dx_live_rows_equal_padded=bool(torch.equal(got[0][keep], ref[0][keep])),
+            dx_dead_zero=not bool(got[0][~keep].any()),
+            bit_equal=all(torch.equal(a, b) for a, b in zip(got, got_again) if a is not None),
+            finite=all(bool(torch.isfinite(a).all()) for a in got if a is not None),
+            ms=cuda_ms(lambda: bwd(*bargs, live=live, blocks=blocks), reps=25),
+        )
+        bwd_line["bound_ms"], bwd_line["bound_by"] = bound(int(live.sum()), True)
+        largs = launch_of(bargs)
+        bufs = mc.bwd_buffers(n, largs[7], dout.device)
+        launch = lambda parts: mc.launch_bwd(*largs, bufs, parts, blocks=blocks)
+        bwd_line["dgrad_ms"] = cuda_ms(lambda: launch(mc.DGRAD_PART), reps=25)
+        bwd_line["wgrad_ms"] = cuda_ms(lambda: launch(mc.WGRAD_PART), reps=25)
+        line = dict(rows=n, live=int(live.sum()), live_blocks=int(blocks[-1]), blocks=int(blocks.shape[0] - 1),
+                    list_ms=cuda_ms(lambda: mc.live_blocks(live), reps=25), fwd=fwd_line, bwd=bwd_line,
+                    padded=padded)
+        print(f"kernel {label} live {name} " + json.dumps(line))
+        ok = (fwd_line["live_rows_equal_padded"] and fwd_line["dead_zero"] and fwd_line["bit_equal"]
+              and fwd_line["finite"] and mx <= DEFORM_OUT_MAX_REL and nm <= DEFORM_OUT_NORM_REL
+              and bwd_line["dx_live_rows_equal_padded"] and bwd_line["dx_dead_zero"] and bwd_line["bit_equal"]
+              and bwd_line["finite"]
+              and all(e[0] <= DEFORM_GRAD_MAX_REL and e[1] <= DEFORM_GRAD_NORM_REL for e in errs.values())
+              and all(e[0] <= DEFORM_GRAD_MAX_REL and e[1] <= DEFORM_GRAD_NORM_REL
+                      for e in bwd_line["errs_vs_padded"].values()))
+        if not ok:
+            raise AssertionError(f"{label} live {name}: {line}")
+        lines[name] = line
+        del out, emb, acts, got, got_again, want_b, ref
+    return lines
+
+
 def _rel_errs(got, want):
     """(max |diff| / max |want|, ||diff|| / ||want||)."""
     got, want = got.double(), want.double()
@@ -697,9 +824,9 @@ def pixel_stage_inputs(model, camera):
         captured.append(args)
         return pixel_stage(*args, **kwargs)
 
-    def capture_field(*args):
+    def capture_field(*args, **kwargs):
         field_args.append(args)
-        return field(*args)
+        return field(*args, **kwargs)
 
     rasterize_mod.rasterize_pixels = capture
     fields_mod.deform_field = capture_field
@@ -874,7 +1001,47 @@ def _check_deform(x, t_row, ws, bs, head_w, head_b, timed: bool = True) -> dict:
                 raise AssertionError(f"deform_bwd vs plain, {name}: max rel {mx}, norm rel {nm}")
         if not all(torch.isfinite(a).all() for a in got):
             raise AssertionError("deform_bwd: non-finite gradients")
-    return {"fwd": fwd, "bwd": bwd}
+    if not timed:
+        return {"fwd": fwd, "bwd": bwd}
+    big = trainer_rows(x, n, SEED + 31)
+    live = _check_live_rows(
+        "deform", n, mc.deform_field_fwd, mc.deform_field_fwd_plain, mc.deform_field_bwd, mc.deform_field_bwd_plain,
+        (big,) + fargs[1:7], lambda d, e, a: (big, d, fargs[2], fargs[4], e, a, x_lanes),
+        lambda b: (True, b[0], b[1], b[2], b[3], b[4], b[5], 1, x_lanes),
+        lambda nl, backward: field_bound(nl, in_ch, True, backward, True), False, SEED + 33,
+    )
+    split = {f"rows_{m.shape[0]}": split_chain_ms(m, t_row, ws, bs, fargs[4], fargs[5]) for m in (x, big)}
+    print("kernel deform split-linear chain (cuBLAS, reference) " + json.dumps(split))
+    return {"fwd": fwd, "bwd": bwd, "live": live, "split": split}
+
+
+def split_chain_ms(x, t_row, ws, bs, head_w, head_b) -> dict:
+    """The deform field's split-linear chain (`DeformField(impl="split")`,
+    bf16: the path of `deform_impl="headsfused"`, cuBLAS products) on the
+    same inputs and weights: ms of its forward alone (no gradient) and of
+    forward plus backward to every weight with a seeded cotangent; a
+    reference reading beside the kernels (no single PyTorch call computes
+    the 8-layer trunk)."""
+    import torch
+
+    from freegaussian_tpu_torch.models.fields import DeformField
+
+    chain = DeformField(compute_dtype=torch.bfloat16, impl="split").to(x.device)
+    with torch.no_grad():
+        for layer, w, b in zip(chain.linear, ws, bs):
+            layer.weight.copy_(w)
+            layer.bias.copy_(b)
+    params = list(chain.linear.parameters())
+    g = torch.Generator(device="cpu").manual_seed(SEED + 37)
+    dy = torch.randn(x.shape[0], head_w.shape[0], generator=g).to(x.device)
+
+    def train():
+        y = chain._split_forward(x, t_row[None], head_w, head_b)
+        torch.autograd.grad(y, params, dy)
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: chain._split_forward(x, t_row[None], head_w, head_b), reps=10)
+    return {"fwd_ms": fwd_ms, "fwd_bwd_ms": cuda_ms(train, reps=10)}
 
 
 def _check_backward(m2d, con, chans, opac, depths, radii, width, height, pairs16, frame: str = "bench",
@@ -1410,9 +1577,9 @@ def phase_kernels2(model2) -> dict:
     trunk = fields_mod.field_trunk
     calls = []
 
-    def capture(*args):
+    def capture(*args, **kwargs):
         calls.append(args)
-        return trunk(*args)
+        return trunk(*args, **kwargs)
 
     fields_mod.field_trunk = capture
     try:
@@ -1495,7 +1662,14 @@ def _check_field(mode, x, value, t_row, ws, bs) -> dict:
                 raise AssertionError(f"field_bwd ({mode}) vs plain, {name}: max rel {emx}, norm rel {enm}")
         if not all(torch.isfinite(a).all() for a in got):
             raise AssertionError(f"field_bwd ({mode}): non-finite gradients")
-    return {"fwd": fwd, "bwd": bwd}
+        big = trainer_rows(xsrc, n, SEED + 41)
+        live = _check_live_rows(
+            f"field ({mode})", n, mc.field_trunk_fwd, mc.field_trunk_fwd_plain, mc.field_trunk_bwd,
+            mc.field_trunk_bwd_plain, (big,) + fargs[1:], lambda d, e, a: (big, d, wpack, e, a, sources, x_lanes),
+            lambda b: (False, b[0], b[1], b[2], None, b[3], b[4], sources, x_lanes),
+            lambda nl, backward: field_bound(nl, in_ch, True, backward, False, sources), True, SEED + 43,
+        )
+    return {"fwd": fwd, "bwd": bwd, "live": live}
 
 
 SERVE2_REPEATS = 3
@@ -1941,7 +2115,7 @@ def phase_trunk(model) -> dict:
     if not all(torch.isfinite(p.grad).all() for p in deform.parameters()):
         raise AssertionError("per-point deform field: non-finite gradients")
 
-    inp, wpack, bias, _ = calls[0]
+    inp, wpack, bias = calls[0][:3]
     n = inp.shape[0]
     with torch.no_grad():
         h, (emb, acts) = mc.trunk_fwd(inp, wpack, bias, True)
@@ -1985,7 +2159,13 @@ def phase_trunk(model) -> dict:
                 raise AssertionError(f"trunk_bwd vs plain, {name}: max rel {emx}, norm rel {enm}")
         if bwd["d_emb_nonzero_past_fan_in"] or not all(torch.isfinite(a).all() for a in got):
             raise AssertionError(f"trunk_bwd: {bwd['d_emb_nonzero_past_fan_in']} non-zero lanes past the fan-in, or non-finite")
-    return {"launches": counts, "fwd": fwd, "bwd": bwd}
+        big = trainer_rows(inp, n, SEED + 47)
+        live = _check_live_rows(
+            "trunk", n, mc.trunk_fwd, mc.trunk_fwd_plain, mc.trunk_bwd, mc.trunk_bwd_plain, (big, wpack, bias),
+            lambda d, e, a: (d, wpack, e, a), lambda b: (False, None, b[0], b[1], None, b[2], b[3], 0, 0),
+            lambda nl, backward: trunk_bound(nl, in_ch, True, backward), True, SEED + 49,
+        )
+    return {"launches": counts, "fwd": fwd, "bwd": bwd, "live": live}
 
 
 def phase_viewer_verb(data: Path, verb: dict, control_verb: dict) -> dict:

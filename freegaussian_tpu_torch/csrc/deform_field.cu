@@ -88,6 +88,18 @@
 //                       K / 128 times (1-3), its input once. Each share writes
 //                       its partial sum; the wrapper adds the shares in a fixed
 //                       order, so the weight gradients are deterministic.
+// Live blocks. With a block list (`blocks`, `live_count`: the wrapper's
+// stable partition of the 128-row blocks, those holding a live row first in
+// row order, then the others, and the live count, both on the device) the
+// forward and data-gradient grids stay n_pad / 128 blocks, block b taking
+// list entry b: a live block works as without a list, a dead one writes
+// zeros to the rows of what the caller reads (y or h, h being acts[7] in
+// training; dx and its own row of the block sums) and returns, leaving its
+// saved embedding, activations and G unwritten (nothing reads them). The
+// weight-gradient pass keeps its grid and splits the live blocks' 64-row
+// chunks, in list order, evenly over its shares, so its work follows the
+// live rows. Without a list every block is live, as the list over an
+// all-live mask gives.
 // Bound on an H100: ~1.0e11 bf16 tensor operations per forward at N = 1e5
 // (2.1e11 backward) against ~0.46 GB of saved-activation traffic in
 // training; chip_smoke.py prints both bounds from its own run, and the
@@ -304,17 +316,31 @@ field_fwd_kernel(const float* __restrict__ x,      // (N, 3 S)
                  void* __restrict__ out,           // y (N, 13) f32, or h (N, 256) bf16
                  bf16* __restrict__ emb_out,       // (N_pad, 128) or null
                  bf16* __restrict__ acts_out,      // (8, N_pad, 256) or null
-                 int n_pad) {
+                 int n_pad,
+                 const int* __restrict__ blocks,   // (N_pad / 128,) block list, or null: every block live
+                 const int* __restrict__ live_count) {
     extern __shared__ __align__(128) unsigned char smem[];
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int row0 = (blocks ? blocks[blockIdx.x] : (int)blockIdx.x) * BROWS;
+    if (blocks && (int)blockIdx.x >= *live_count) {  // no live row: zeros where the caller reads
+        if (HEADS) {
+            float* y = (float*)out + (size_t)row0 * NOUT;
+            for (int i = tid; i < min(BROWS, n - row0) * NOUT; i += BTHREADS) y[i] = 0.0f;
+        } else {
+            bf16* hr = acts_out ? acts_out + ((size_t)(DEPTH - 1) * n_pad + row0) * H : (bf16*)out + (size_t)row0 * H;
+            uint4* h = (uint4*)hr;
+            const int rows = acts_out ? BROWS : min(BROWS, n - row0);
+            for (int i = tid; i < rows * (H / 8); i += BTHREADS) h[i] = make_uint4(0u, 0u, 0u, 0u);
+        }
+        return;
+    }
     float* s_x = (float*)smem;
     bf16* s_emb = (bf16*)(smem + BXBYTES);
     bf16* s_act = s_emb + BROWS * LDE;       // the current activation, overwritten in place layer by layer
     bf16* s_ring = s_act + BROWS * LDA;      // two staged weight slices
     float* s_hw = (float*)(s_ring + 2 * FWD_RING);
     float* s_red = (float*)s_ring;           // the heads' quarter sums (after the last layer)
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int wm = warp >> 3, wn = warp & 7;
-    const int row0 = blockIdx.x * BROWS;
     // the lane's ldmatrix row addresses: A in the embedding and in the
     // activation (column 0), B in ring slot 0
     const uint32_t a_emb = smem_u32(s_emb + (wm * 64 + (lane & 15)) * LDE + (lane >> 4) * 8);
@@ -514,9 +540,22 @@ field_dgrad_kernel(const float* __restrict__ x, int n, int src, int xl,
                    const bf16* __restrict__ acts,    // (8, N_pad, 256)
                    int n_pad,
                    bf16* __restrict__ G,             // (8, N_pad, 256) out: bf16(g) per layer
-                   float* __restrict__ small,        // (blocks, SMALL) out: this block's f32 sums
-                   float* __restrict__ dx) {         // (N, 3 S), or d emb (N, 128) for S = 0
+                   float* __restrict__ small,        // (blocks, SMALL) out: each block's f32 sums, by block
+                   float* __restrict__ dx,           // (N, 3 S), or d emb (N, 128) for S = 0
+                   const int* __restrict__ blocks,   // (N_pad / 128,) block list, or null: every block live
+                   const int* __restrict__ live_count) {
     extern __shared__ __align__(128) unsigned char smem[];
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int blk = blocks ? blocks[blockIdx.x] : (int)blockIdx.x;
+    const int row0 = blk * BROWS;
+    float* pb = small + (size_t)blk * SMALL;
+    if (blocks && (int)blockIdx.x >= *live_count) {  // no live row: zero sums (its cotangents are zeros) and dx
+        for (int i = tid; i < SMALL; i += BTHREADS) pb[i] = 0.0f;
+        const int xw = src > 0 ? 3 * src : EMB;
+        float* d = dx + (size_t)row0 * xw;
+        for (int i = tid; i < min(BROWS, n - row0) * xw; i += BTHREADS) d[i] = 0.0f;
+        return;
+    }
     float* s_x = (float*)smem;
     float* s_dy = (float*)(smem + BXBYTES);
     bf16* s_g = (bf16*)(s_dy + BROWS * 16);  // the current layer's bf16(g), in place
@@ -525,10 +564,7 @@ field_dgrad_kernel(const float* __restrict__ x, int n, int src, int xl,
     float* s_db = (float*)(s_w + 2 * WS * LDW);  // [row half][256] column sums
     float* s_red = (float*)s_w;              // the heads' second-half sums (top layer only)
     float* s_demb = (float*)s_w;             // d emb (the end only)
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int wm = warp >> 3, wn = warp & 7;
-    const int row0 = blockIdx.x * BROWS;
-    float* pb = small + (size_t)blockIdx.x * SMALL;
 
     load_sources(s_x, x, row0, n, src, tid);
     if (HEADS) {
@@ -695,14 +731,21 @@ constexpr size_t WGRAD_SMEM = sizeof(bf16) * WG_STAGES * WG_CHUNK * (LDGW + LDIW
 static_assert(WGRAD_SMEM <= 232448, "one block's shared memory");
 
 // dW tile (layer i, input columns k0 .. k0 + 127, all 256 outputs) over the
-// block's share of the rows: dW[o][k] = sum_r G[r][o] In[r][k]. Warp (wo,
-// wk) owns outputs 64 wo .. and columns 32 wk ..; rows stream through a
-// four-chunk cp.async ring, three chunks in flight while one is multiplied.
+// block's share of the rows: dW[o][k] = sum_r G[r][o] In[r][k]. The rows are
+// the live blocks' 64-row chunks in list order (every chunk without a list),
+// split evenly over the gridDim.y shares; a share with no chunk writes
+// zeros. Warp (wo, wk) owns outputs 64 wo .. and columns 32 wk ..; rows
+// stream through a four-chunk cp.async ring, three chunks in flight while
+// one is multiplied.
+constexpr int WG_PER_BLOCK = BROWS / WG_CHUNK;  // weight-gradient chunks in a block
+static_assert(BROWS % WG_CHUNK == 0, "a block is whole chunks");
 __global__ void __launch_bounds__(BTHREADS, 1)
 field_wgrad_kernel(const bf16* __restrict__ emb,   // (N_pad, 128)
                    const bf16* __restrict__ acts,  // (8, N_pad, 256)
                    const bf16* __restrict__ G,     // (8, N_pad, 256)
-                   int n_pad, int rows_per_split,
+                   int n_pad,
+                   const int* __restrict__ blocks,      // (N_pad / 128,) block list, or null
+                   const int* __restrict__ live_count,
                    float* __restrict__ partial) {  // (splits, packed weight size)
     extern __shared__ __align__(128) unsigned char smem[];
     bf16* s_ring = (bf16*)smem;
@@ -724,14 +767,17 @@ field_wgrad_kernel(const bf16* __restrict__ emb,   // (N_pad, 128)
         col = i == SKIP_IN ? k0 - EMB : k0;
     }
     const bf16* g = G + (size_t)i * n_pad * H;
-    const int r_begin = min(n_pad, (int)blockIdx.y * rows_per_split);
-    const int r_end = min(n_pad, r_begin + rows_per_split);
-    const int chunks = (r_end - r_begin) / WG_CHUNK;
+    const int total = (blocks ? *live_count : n_pad / BROWS) * WG_PER_BLOCK;
+    const int per = (total + (int)gridDim.y - 1) / (int)gridDim.y;
+    const int c_begin = min(total, (int)blockIdx.y * per);
+    const int chunks = min(total, c_begin + per) - c_begin;
 
     auto load_chunk = [&](int c) {
         bf16* sg = s_ring + (c % WG_STAGES) * WG_CHUNK * (LDGW + LDIW);
         bf16* si = sg + WG_CHUNK * LDGW;
-        const size_t r0 = (size_t)r_begin + (size_t)c * WG_CHUNK;
+        const int l = c_begin + c;  // the chunk's place in the list
+        const int b = blocks ? blocks[l / WG_PER_BLOCK] : l / WG_PER_BLOCK;
+        const size_t r0 = (size_t)b * BROWS + (size_t)(l % WG_PER_BLOCK) * WG_CHUNK;
         for (int e = tid; e < WG_CHUNK * (H / 8); e += BTHREADS) {
             const int r = e / (H / 8), cc = (e % (H / 8)) * 8;
             cp_async16(sg + r * LDGW + cc, g + (r0 + r) * H + cc);
@@ -803,21 +849,22 @@ bool valid_lanes(int src, int xl, int tl) {
 template <bool HEADS>
 cudaError_t launch_fwd(const void* x, int n, int src, int xl, const void* trow, int tl, const void* wpack,
                        const void* bias, const void* hw, const void* hb, void* out, void* emb_out, void* acts_out,
-                       int n_pad, cudaStream_t stream) {
+                       int n_pad, const int* blocks, const int* live_count, cudaStream_t stream) {
     cudaFuncSetAttribute(field_fwd_kernel<HEADS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
     field_fwd_kernel<HEADS><<<n_pad / BROWS, BTHREADS, FWD_SMEM, stream>>>(
         (const float*)x, n, src, xl, (const float*)trow, tl, (const bf16*)wpack, (const float*)bias,
-        (const float*)hw, (const float*)hb, out, (bf16*)emb_out, (bf16*)acts_out, n_pad);
+        (const float*)hw, (const float*)hb, out, (bf16*)emb_out, (bf16*)acts_out, n_pad, blocks, live_count);
     return cudaGetLastError();
 }
 
 template <bool HEADS>
 cudaError_t launch_dgrad(const void* x, int n, int src, int xl, const void* dout, const void* wpack, const void* hw,
-                         const void* acts, int n_pad, void* G, void* small, void* dx, cudaStream_t stream) {
+                         const void* acts, int n_pad, void* G, void* small, void* dx, const int* blocks,
+                         const int* live_count, cudaStream_t stream) {
     cudaFuncSetAttribute(field_dgrad_kernel<HEADS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DGRAD_SMEM);
     field_dgrad_kernel<HEADS><<<n_pad / BROWS, BTHREADS, DGRAD_SMEM, stream>>>(
         (const float*)x, n, src, xl, (const float*)dout, (const bf16*)wpack, (const float*)hw, (const bf16*)acts,
-        n_pad, (bf16*)G, (float*)small, (float*)dx);
+        n_pad, (bf16*)G, (float*)small, (float*)dx, blocks, live_count);
     return cudaGetLastError();
 }
 
@@ -828,17 +875,23 @@ extern "C" long field_packed_size() { return layer_off(DEPTH); }
 // heads != 0: out is y (N, 13) f32 and hw / hb the packed heads; heads == 0:
 // out is h (N, 256) bf16 and hw / hb are not read; with acts_out, h is its
 // last layer and out is not written (it may be null). src == 0 (with xl ==
-// tl == 0, heads == 0): x is the (N, 128) f32 embedding.
+// tl == 0, heads == 0): x is the (N, 128) f32 embedding. blocks and
+// live_count: the device block list (n_pad / 128 ints, the live blocks first)
+// and its live count, or both null (every block live).
 extern "C" int field_fwd(int heads, const void* x, int n, int src, int xl, const void* trow, int tl,
                          const void* wpack, const void* bias, const void* hw, const void* hb, void* out,
-                         void* emb_out, void* acts_out, int n_pad, void* stream) {
+                         void* emb_out, void* acts_out, int n_pad, const int* blocks, const int* live_count,
+                         void* stream) {
     // no early exit at n == 0: the padded rows (n_pad >= 128) still run, so
-    // the saved tensors are written whatever n is
-    if (!valid_lanes(src, xl, tl) || (heads && src == 0) || n_pad % BROWS != 0 || n_pad < n || n_pad == 0)
+    // without a block list the saved tensors are written whatever n is
+    if (!valid_lanes(src, xl, tl) || (heads && src == 0) || n_pad % BROWS != 0 || n_pad < n || n_pad == 0 ||
+        (blocks == nullptr) != (live_count == nullptr))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    return (int)(heads ? launch_fwd<true>(x, n, src, xl, trow, tl, wpack, bias, hw, hb, out, emb_out, acts_out, n_pad, s)
-                       : launch_fwd<false>(x, n, src, xl, trow, tl, wpack, bias, hw, hb, out, emb_out, acts_out, n_pad, s));
+    return (int)(heads ? launch_fwd<true>(x, n, src, xl, trow, tl, wpack, bias, hw, hb, out, emb_out, acts_out, n_pad,
+                                          blocks, live_count, s)
+                       : launch_fwd<false>(x, n, src, xl, trow, tl, wpack, bias, hw, hb, out, emb_out, acts_out, n_pad,
+                                           blocks, live_count, s));
 }
 
 extern "C" int field_bwd_rows() { return BROWS; }
@@ -852,29 +905,31 @@ extern "C" int field_bwd_small() { return SMALL; }
 // block's d bias, d head_w, d head_b and d emb row sums; dx; partial
 // (splits, packed size) f32, each split's share of the weight gradients.
 // parts: 1 the data-gradient walk, 2 the weight-gradient pass (from G), 3 both.
+// blocks and live_count: the forward's block list, or both null.
 extern "C" int field_bwd(int heads, const void* x, int n, int src, int xl, const void* dout, const void* wpack,
                          const void* hw, const void* emb, const void* acts, int n_pad, int splits, void* G,
-                         void* small, void* dx, void* partial, int parts, void* stream) {
+                         void* small, void* dx, void* partial, int parts, const int* blocks, const int* live_count,
+                         void* stream) {
     // no early exit at n == 0: every block's sums and every split of the
     // weight-gradient partials are written (zeros then), since the wrapper sums them
     if (!valid_lanes(src, xl, 0) || (heads && src == 0) || n_pad % BROWS != 0 || n_pad < n || n_pad == 0 ||
-        splits < 1 || parts < 1 || parts > 3)
+        splits < 1 || parts < 1 || parts > 3 || (blocks == nullptr) != (live_count == nullptr))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     if (parts & 1) {
-        cudaError_t err = heads ? launch_dgrad<true>(x, n, src, xl, dout, wpack, hw, acts, n_pad, G, small, dx, s)
-                                : launch_dgrad<false>(x, n, src, xl, dout, wpack, hw, acts, n_pad, G, small, dx, s);
+        cudaError_t err = heads ? launch_dgrad<true>(x, n, src, xl, dout, wpack, hw, acts, n_pad, G, small, dx, blocks,
+                                                     live_count, s)
+                                : launch_dgrad<false>(x, n, src, xl, dout, wpack, hw, acts, n_pad, G, small, dx, blocks,
+                                                      live_count, s);
         if (err != cudaSuccess) return (int)err;
     }
     if (parts & 2) {
         int tiles = 0;
         for (int i = 0; i < DEPTH; ++i) tiles += wgrad_tiles(i);
-        const int chunks = n_pad / WG_CHUNK;
-        const int rows_per_split = ((chunks + splits - 1) / splits) * WG_CHUNK;
         cudaFuncSetAttribute(field_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WGRAD_SMEM);
         dim3 grid(tiles, splits);
         field_wgrad_kernel<<<grid, BTHREADS, WGRAD_SMEM, s>>>((const bf16*)emb, (const bf16*)acts, (const bf16*)G,
-                                                              n_pad, rows_per_split, (float*)partial);
+                                                              n_pad, blocks, live_count, (float*)partial);
     }
     return (int)cudaGetLastError();
 }

@@ -54,7 +54,8 @@ def control_state_from_deform(
         gaussian_mask = gaussian_mask & alive[:, None]
 
     def deformed(t):
-        d_xyz, _, _ = deform(means, torch.as_tensor(t, dtype=torch.float32, device=means.device).reshape(1, 1))
+        t = torch.as_tensor(t, dtype=torch.float32, device=means.device).reshape(1, 1)
+        d_xyz, _, _ = deform(means, t, live=alive)
         return apply_se3_deform(means, d_xyz)
 
     disp = deformed(time1) - deformed(time0)  # (N, 3)
@@ -107,7 +108,7 @@ def control_forward(
             d_avg = torch.as_tensor(atrb_values, dtype=torch.float32, device=means.device)
 
         value = blend_control_values(gaussian_mask & alive[:, None], d_avg)
-        d_xyz, d_rot, d_scale = control(means, value)
+        d_xyz, d_rot, d_scale = control(means, value, live=alive)
 
         new_means = means + sel * d_xyz
         scales_lin = torch.exp(params["scales"]) + sel * d_scale

@@ -34,12 +34,18 @@ With per-point times (t of shape (N, 1)) both deform modes build the
 embeddings here and run the trunk alone on them (`fused_trunk`), the heads
 in f32 outside, as `deform_apply_fused` does under either impl.
 The timenet and the screw-axis normalization stay here in every mode.
+
+Both forwards take `live`, the Gaussians' (N,) bool `alive` or None: the
+kernel modes pass it to `ops/mlp_cuda.py`, whose kernels then work only on
+the 128-row blocks that hold a live row (the others' outputs are zeros:
+the screw axis there is the 1e-5 offset, finite); the split-linear chains
+compute every row. Either way the rows that a caller reads are the same.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -169,8 +175,9 @@ class DeformField(nn.Module):
                 _torch_default_init(layer, generator, head_init_scale if layer in heads else 1.0)
         return self
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor):
-        """x: (N, 3) canonical means; t: (1, 1) shared frame time or (N, 1).
+    def forward(self, x: torch.Tensor, t: torch.Tensor, live: Optional[torch.Tensor] = None):
+        """x: (N, 3) canonical means; t: (1, 1) shared frame time or (N, 1);
+        live: (N,) bool or None (the module docstring).
 
         Returns (d_xyz SE3Screw, d_rotation (N, 4), d_scaling (N, 3))."""
         ct = self.compute_dtype
@@ -185,12 +192,12 @@ class DeformField(nn.Module):
         b_all = torch.cat([hd.bias for hd in heads], dim=0)
         ws, bs = [l.weight for l in self.linear], [l.bias for l in self.linear]
         if self.impl != "split" and t_emb.shape[0] != 1:
-            h = fused_trunk(positional_embed(x.float(), self.multires), t_emb, ws, bs)
+            h = fused_trunk(positional_embed(x.float(), self.multires), t_emb, ws, bs, live=live)
             y = _linear(h, w_all, b_all, torch.float32)
         elif self.impl == "fused":
-            y = deform_field(x, t_emb[0], ws, bs, w_all, b_all)
+            y = deform_field(x, t_emb[0], ws, bs, w_all, b_all, live=live)
         elif self.impl == "pallas":
-            y = _linear(field_trunk(x, None, t_emb[0], ws, bs), w_all, b_all, torch.float32)
+            y = _linear(field_trunk(x, None, t_emb[0], ws, bs, live=live), w_all, b_all, torch.float32)
         else:
             y = self._split_forward(x, t_emb, w_all, b_all)
         w, v, rotation, scaling = y[:, 0:3], y[:, 3:6], y[:, 6:10], y[:, 10:13]
@@ -267,16 +274,17 @@ class ControlField(nn.Module):
             _torch_default_init(layer, generator)
         return self
 
-    def forward(self, x: torch.Tensor, value: torch.Tensor):
-        """x: (N, 3) positions; value: (N, 3) or (1, 3) blended control state.
-        Returns (d_xyz, d_rot, d_scale), f32."""
+    def forward(self, x: torch.Tensor, value: torch.Tensor, live: Optional[torch.Tensor] = None):
+        """x: (N, 3) positions; value: (N, 3) or (1, 3) blended control state;
+        live: (N,) bool or None (the module docstring). Returns (d_xyz,
+        d_rot, d_scale), f32."""
         _no_tf32(x)
         value = value.expand(x.shape[0], value.shape[-1])
         heads = [getattr(self, n) for n in CONTROL_HEAD_NAMES]
         w_all = torch.cat([hd.weight for hd in heads], dim=0)
         b_all = torch.cat([hd.bias for hd in heads], dim=0)
         if self.impl == "pallas":
-            h = field_trunk(x, value, None, [l.weight for l in self.linear], [l.bias for l in self.linear])
+            h = field_trunk(x, value, None, [l.weight for l in self.linear], [l.bias for l in self.linear], live=live)
         else:
             x_emb = positional_embed(x.float(), self.multires)
             v_emb = positional_embed(value.float(), self.multires)

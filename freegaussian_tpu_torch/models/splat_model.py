@@ -213,7 +213,7 @@ def _forward(
     # deltas by 0, which is the same). The field sees detached means.
     if deform is not None and warmed_up:
         times = camera.time.reshape(1, 1)
-        d_xyz, d_rot, d_scale = deform(means.detach(), times)
+        d_xyz, d_rot, d_scale = deform(means.detach(), times, live=alive)
         means_d = apply_se3_deform(means, d_xyz)
         scales_d = scales_lin + d_scale
         quats_d = quats_n + d_rot
@@ -229,7 +229,7 @@ def _forward(
     if camera0 is not None and deform is not None:
         base = params["means"]
         if warmed_up:
-            d_xyz0, _, _ = deform(base.detach(), camera0.time.reshape(1, 1))
+            d_xyz0, _, _ = deform(base.detach(), camera0.time.reshape(1, 1), live=alive)
             means_prev_d = apply_se3_deform(base, d_xyz0)
             means_prev = base + (means_prev_d - base)
         else:

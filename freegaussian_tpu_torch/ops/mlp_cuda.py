@@ -28,6 +28,20 @@ rounding points: bf16 product operands with f32 accumulation, f32 bias and
 ReLU, bf16-stored activations, f32 heads; the backward's products take
 bf16(g).
 
+Live rows. Each of the three takes `live`, an (N,) bool mask on the data's
+device (the Gaussians' `alive`), or None for every row. With a mask only the
+128-row blocks that hold a live row do work: their rows, dead ones included,
+are bit-equal to the `live=None` call in the outputs and the data gradients
+(dx, d emb); every row of a block with no live row is zero in what the
+caller reads (y, or h: the last saved activation in training) and in dx;
+the weight and bias gradients sum the live blocks' rows alone (deterministic,
+and within the gradient budget of the `None` call, whose sums are split
+elsewhere). That is exact for a caller whose cotangents are zero on dead
+rows, as every consumer of the fields masks by `alive`. The kernels take the
+mask as a device block list (`live_blocks`), made once in a forward and kept
+for its backward, with no host synchronisation, so CUDA graphs capture it
+and a replay reads the mask as it is then.
+
 Embedding lanes (128): source s takes lanes [s X, (s + 1) X), X = 3 (1 + 2 L)
 in `positional_embed`'s order; the time row follows the sources; the rest is
 zero. The trunk weights travel packed (`pack_trunk`): layer i as a (256, K_i)
@@ -101,9 +115,9 @@ def _kernel(name: str):
         fn = getattr(lib, name)
         I, P = ctypes.c_int, ctypes.c_void_p
         if name == "field_fwd":
-            fn.argtypes = [I, P, I, I, I, P, I] + [P] * 7 + [I, P]
+            fn.argtypes = [I, P, I, I, I, P, I] + [P] * 7 + [I] + [P] * 3
         else:
-            fn.argtypes = [I, P, I, I, I] + [P] * 5 + [I, I] + [P] * 4 + [I, P]
+            fn.argtypes = [I, P, I, I, I] + [P] * 5 + [I, I] + [P] * 4 + [I] + [P] * 3
         fn.restype = ctypes.c_int
         size = lib.field_packed_size
         size.restype = ctypes.c_long
@@ -120,6 +134,58 @@ def _kernel(name: str):
 
 def _padded_rows(n: int) -> int:
     return max(-(-n // ROWS), 1) * ROWS
+
+
+def _block_flags(live: torch.Tensor) -> torch.Tensor:
+    """(N_pad / ROWS,) bool: the 128-row block holds a live row."""
+    rows = torch.zeros(_padded_rows(live.shape[0]), dtype=torch.bool, device=live.device)
+    rows[: live.shape[0]] = live
+    return rows.view(-1, ROWS).any(1)
+
+
+def live_blocks(live: torch.Tensor) -> torch.Tensor:
+    """The kernels' block list of the (N,) bool mask `live`: (B + 1,) int32
+    on its device, B = N_pad / ROWS. Entries [0, B) are a stable partition of
+    the block indices, the blocks that hold a live row first in row order,
+    then the others; entry B is the live count. Static-shape operations only
+    (cumsum and scatter, no host synchronisation)."""
+    flags = _block_flags(live)
+    f = flags.to(torch.int32)
+    live_rank = torch.cumsum(f, 0, dtype=torch.int32)
+    count = live_rank[-1:]
+    dead_rank = torch.cumsum(1 - f, 0, dtype=torch.int32) + count
+    pos = (torch.where(flags, live_rank, dead_rank) - 1).long()
+    order = torch.empty_like(f).scatter_(0, pos, torch.arange(f.shape[0], dtype=torch.int32, device=f.device))
+    return torch.cat([order, count])
+
+
+def _live_block_rows(live: torch.Tensor) -> torch.Tensor:
+    """(N_pad,) bool: the row's 128-row block holds a live row."""
+    return _block_flags(live)[:, None].expand(-1, ROWS).reshape(-1)
+
+
+def _blocks_for(live: Optional[torch.Tensor], blocks: Optional[torch.Tensor], n: int, device):
+    """Checks `live` against the data (N rows on `device`); returns the
+    block list the kernels launch with: None without a mask or on the CPU
+    (the plain versions read the mask), else `blocks` (the caller's
+    `live_blocks(live)`, made once for a forward and its backward) or one
+    made here."""
+    if live is None:
+        return None
+    _check("live", live, torch.bool, device, (n,))
+    if device.type != "cuda":
+        return None
+    if blocks is None:
+        return live_blocks(live)
+    _check("blocks", blocks, torch.int32, device, (_padded_rows(n) // ROWS + 1,))
+    return blocks
+
+
+def _block_args(blocks: Optional[torch.Tensor]):
+    """(block list, live count) device pointers, or (None, None)."""
+    if blocks is None:
+        return None, None
+    return blocks.data_ptr(), blocks[-1:].data_ptr()
 
 
 def _check(name, t, dtype, device, shape):
@@ -191,9 +257,10 @@ def _bf16_values(t: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _launch_fwd(heads, x, t_row, wpack, bias, head_w, head_b, sources, x_lanes, out, save):
+def _launch_fwd(heads, x, t_row, wpack, bias, head_w, head_b, sources, x_lanes, out, save, blocks=None):
     """One `field_fwd` launch. Returns the saved (emb, acts), or None. `out`
-    may be None for the trunk alone with `save`: h is then acts[-1, :N]."""
+    may be None for the trunk alone with `save`: h is then acts[-1, :N].
+    `blocks`: the `live_blocks` of the call's mask, or None (every row)."""
     dev = x.device
     n = x.shape[0]
     n_pad = _padded_rows(n)
@@ -206,7 +273,7 @@ def _launch_fwd(heads, x, t_row, wpack, bias, head_w, head_b, sources, x_lanes, 
         int(heads), x.data_ptr(), n, sources, x_lanes, t_row.data_ptr(), t_row.shape[0], wpack.data_ptr(),
         bias.data_ptr(), head_w.data_ptr() if heads else None, head_b.data_ptr() if heads else None,
         out.data_ptr() if out is not None else None, emb.data_ptr() if save else None,
-        acts.data_ptr() if save else None, n_pad,
+        acts.data_ptr() if save else None, n_pad, *_block_args(blocks),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
@@ -231,30 +298,31 @@ def bwd_buffers(n: int, sources: int, device) -> dict:
 
 
 def launch_bwd(heads, x, dout, wpack, head_w, emb, acts, sources, x_lanes, bufs: dict,
-               parts: int = DGRAD_PART | WGRAD_PART):
+               parts: int = DGRAD_PART | WGRAD_PART, blocks=None):
     """Launch `field_bwd`'s data-gradient walk and/or weight-gradient pass
-    (`parts`) on checked CUDA inputs and `bwd_buffers`' tensors; no launch
-    count (the wrappers count whole backward calls)."""
+    (`parts`) on checked CUDA inputs and `bwd_buffers`' tensors, with the
+    forward's `blocks` (or None); no launch count (the wrappers count whole
+    backward calls)."""
     n = dout.shape[0]
     fn, err = _kernel("field_bwd")
     rc = fn(
         int(heads), x.data_ptr() if x is not None else None, n, sources, x_lanes, dout.data_ptr(), wpack.data_ptr(),
         head_w.data_ptr() if heads else None, emb.data_ptr(), acts.data_ptr(), _padded_rows(n),
         bufs["partial"].shape[0], bufs["G"].data_ptr(), bufs["small"].data_ptr(), bufs["dx"].data_ptr(),
-        bufs["partial"].data_ptr(), parts, torch.cuda.current_stream(dout.device).cuda_stream,
+        bufs["partial"].data_ptr(), parts, *_block_args(blocks), torch.cuda.current_stream(dout.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"field_bwd launch failed: {err(rc).decode()} (cudaError {rc})")
 
 
-def _launch_bwd(heads, x, dout, wpack, head_w, emb, acts, sources, x_lanes):
+def _launch_bwd(heads, x, dout, wpack, head_w, emb, acts, sources, x_lanes, blocks=None):
     """One `field_bwd` call (data-gradient walk, then weight-gradient
     tiles); the per-block sums and the shares of the weight gradients are
     added in a fixed order. Returns (dx, d emb row sum, packed dW, d bias,
     d head_w, d head_b), the last two None without heads; without sources
-    (x None) dx is d emb (N, 128)."""
+    (x None) dx is d emb (N, 128). `blocks`: the forward's, or None."""
     bufs = bwd_buffers(dout.shape[0], sources, dout.device)
-    launch_bwd(heads, x, dout, wpack, head_w, emb, acts, sources, x_lanes, bufs)
+    launch_bwd(heads, x, dout, wpack, head_w, emb, acts, sources, x_lanes, bufs, blocks=blocks)
     sums = bufs["small"].sum(0)
     dbias = sums[:SMALL_DHW].view(DEPTH, H)
     dhw = sums[SMALL_DHW:SMALL_DHB].view(NOUT, H) if heads else None
@@ -315,6 +383,23 @@ def _trunk_bwd_plain(g: torch.Tensor, wpack: torch.Tensor, a, e: torch.Tensor):
     return d_emb, torch.cat([w.reshape(-1) for w in dws]), torch.stack(dbias)
 
 
+def _dead_rows_zero(t: torch.Tensor, live: Optional[torch.Tensor]) -> torch.Tensor:
+    """`t`, whose rows are the field's (N or N_pad of them), with zeros on
+    the rows of the blocks with no live row, as the kernels write them."""
+    if live is None:
+        return t
+    return torch.where(_live_block_rows(live)[: t.shape[0], None], t, t.new_zeros(()))
+
+
+def _bwd_rows_plain(dout, acts, emb, live: Optional[torch.Tensor]):
+    """The backward's f32 rows of the field's N rows (dout, the eight
+    activations, the embedding), zero on the blocks with no live row, whose
+    saved rows the kernels leave unwritten."""
+    n = dout.shape[0]
+    a = [_dead_rows_zero(acts[i, :n].float(), live) for i in range(DEPTH)]
+    return _dead_rows_zero(dout, live), a, _dead_rows_zero(emb[:n].float(), live)
+
+
 def _embed_bwd_plain(xsrc: torch.Tensor, d_emb: torch.Tensor, sources: int, x_lanes: int) -> torch.Tensor:
     """dx (N, 3 S) through the embedding: lane (s, b, c) is x_sc, sin(f x_sc)
     or cos(f x_sc)."""
@@ -346,10 +431,13 @@ def deform_field_fwd(
     head_b: torch.Tensor,  # (13,) f32
     x_lanes: int,
     save: bool,
+    live: Optional[torch.Tensor] = None,  # (N,) bool, or None: every row
+    blocks: Optional[torch.Tensor] = None,  # live_blocks(live), or None: made here
 ):
     """Returns y (N, 13) f32 and, with `save`, the backward's inputs: the
     bf16 embedding (N_pad, 128) and activations (8, N_pad, 256), rows padded
-    to a multiple of 128 (the padded rows hold x = 0)."""
+    to a multiple of 128 (the padded rows hold x = 0). With `live`, y is
+    zero on the blocks with no live row, whose saved rows are not written."""
     n = x.shape[0]
     dev = x.device
     _check_lanes(1, x_lanes, t_row.shape[0])
@@ -362,20 +450,21 @@ def deform_field_fwd(
         ("head_b", head_b, torch.float32, (NOUT,)),
     ):
         _check(name, t, dt, dev, shape)
+    blocks = _blocks_for(live, blocks, n, dev)
     if _device_kind(dev) == "cpu":
-        return deform_field_fwd_plain(x, t_row, wpack, bias, head_w, head_b, x_lanes, save)
+        return deform_field_fwd_plain(x, t_row, wpack, bias, head_w, head_b, x_lanes, save, live)
     y = torch.empty((n, NOUT), dtype=torch.float32, device=dev)
-    saved = _launch_fwd(True, x, t_row, wpack, bias, head_w, head_b, 1, x_lanes, y, save)
+    saved = _launch_fwd(True, x, t_row, wpack, bias, head_w, head_b, 1, x_lanes, y, save, blocks)
     LAUNCHES["deform_fwd"] += 1
     return y, saved
 
 
-def deform_field_fwd_plain(x, t_row, wpack, bias, head_w, head_b, x_lanes: int, save: bool):
+def deform_field_fwd_plain(x, t_row, wpack, bias, head_w, head_b, x_lanes: int, save: bool, live=None):
     """Plain PyTorch version of `deform_field_fwd` (same inputs, same outputs)."""
     n = x.shape[0]
     emb = _embed_plain(x, t_row, 1, x_lanes, _padded_rows(n))
     acts = _trunk_fwd_plain(emb, wpack, bias)
-    y = (acts[-1][:n] @ head_w.t() + head_b).contiguous()
+    y = _dead_rows_zero((acts[-1][:n] @ head_w.t() + head_b).contiguous(), live)
     return y, ((emb, torch.stack(acts).to(torch.bfloat16)) if save else None)
 
 
@@ -387,9 +476,13 @@ def deform_field_bwd(
     emb: torch.Tensor,  # (N_pad, 128) bf16, from the forward
     acts: torch.Tensor,  # (8, N_pad, 256) bf16, from the forward
     x_lanes: int,
+    live: Optional[torch.Tensor] = None,  # the forward's
+    blocks: Optional[torch.Tensor] = None,  # the forward's live_blocks(live), or None: made here
 ):
     """Returns (dx (N, 3), the row sum of d emb (128,), the packed trunk
-    weight gradient (f32), d bias (8, 256), d head_w (13, 256), d head_b (13,))."""
+    weight gradient (f32), d bias (8, 256), d head_w (13, 256), d head_b (13,)).
+    With `live`, dx is zero on the blocks with no live row, and the sums
+    run over the others."""
     n = x.shape[0]
     n_pad = _padded_rows(n)
     dev = x.device
@@ -403,22 +496,22 @@ def deform_field_bwd(
         ("acts", acts, torch.bfloat16, (DEPTH, n_pad, H)),
     ):
         _check(name, t, dt, dev, shape)
+    blocks = _blocks_for(live, blocks, n, dev)
     if _device_kind(dev) == "cpu":
-        return deform_field_bwd_plain(x, dy, wpack, head_w, emb, acts, x_lanes)
-    out = _launch_bwd(True, x, dy, wpack, head_w, emb, acts, 1, x_lanes)
+        return deform_field_bwd_plain(x, dy, wpack, head_w, emb, acts, x_lanes, live)
+    out = _launch_bwd(True, x, dy, wpack, head_w, emb, acts, 1, x_lanes, blocks)
     LAUNCHES["deform_bwd"] += 1
     return out
 
 
-def deform_field_bwd_plain(x, dy, wpack, head_w, emb, acts, x_lanes: int):
+def deform_field_bwd_plain(x, dy, wpack, head_w, emb, acts, x_lanes: int, live=None):
     """Plain PyTorch version of `deform_field_bwd` (same inputs, same outputs)."""
-    n = x.shape[0]
-    a = [acts[i, :n].float() for i in range(DEPTH)]
+    dy, a, e = _bwd_rows_plain(dy, acts, emb, live)
     dhb = dy.sum(0)
     dhw = dy.t() @ a[DEPTH - 1]
     g = (dy @ head_w) * (a[DEPTH - 1] > 0)
-    d_emb, dpack, dbias = _trunk_bwd_plain(g, wpack, a, emb[:n].float())
-    return _embed_bwd_plain(x, d_emb, 1, x_lanes), d_emb.sum(0), dpack, dbias, dhw, dhb
+    d_emb, dpack, dbias = _trunk_bwd_plain(g, wpack, a, e)
+    return _dead_rows_zero(_embed_bwd_plain(x, d_emb, 1, x_lanes), live), d_emb.sum(0), dpack, dbias, dhw, dhb
 
 
 class _DeformFieldFn(torch.autograd.Function):
@@ -426,27 +519,29 @@ class _DeformFieldFn(torch.autograd.Function):
     f32 for x, the time row and every master weight."""
 
     @staticmethod
-    def forward(ctx, save, x, t_row, head_w, head_b, *trunk):
+    def forward(ctx, save, live, x, t_row, head_w, head_b, *trunk):
         ws, bs = trunk[:DEPTH], trunk[DEPTH:]
         in_ch = ws[0].shape[1]
         x_lanes = in_ch - t_row.shape[0]
         wpack = pack_trunk(ws, in_ch)
         bias = torch.stack([b.float() for b in bs]).contiguous()
-        y, saved = deform_field_fwd(x, t_row, wpack, bias, head_w, head_b, x_lanes, save)
+        blocks = _blocks_for(live, None, x.shape[0], x.device)
+        y, saved = deform_field_fwd(x, t_row, wpack, bias, head_w, head_b, x_lanes, save, live, blocks)
         if save:
-            ctx.save_for_backward(x, wpack, head_w, *saved)
+            ctx.save_for_backward(x, wpack, head_w, *saved, live, blocks)
             ctx.dims = (in_ch, x_lanes, t_row.shape[0])
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, wpack, head_w, emb, acts = ctx.saved_tensors
+        x, wpack, head_w, emb, acts, live, blocks = ctx.saved_tensors
         in_ch, x_lanes, t_lanes = ctx.dims
         dx, demb, dpack, dbias, dhw, dhb = deform_field_bwd(
-            x, dy.float().contiguous(), wpack, head_w, emb, acts, x_lanes
+            x, dy.float().contiguous(), wpack, head_w, emb, acts, x_lanes, live, blocks
         )
         return (
-            None, dx, demb[x_lanes : x_lanes + t_lanes], dhw, dhb, *unpack_trunk(dpack, in_ch), *dbias.unbind(0)
+            None, None, dx, demb[x_lanes : x_lanes + t_lanes], dhw, dhb, *unpack_trunk(dpack, in_ch),
+            *dbias.unbind(0),
         )
 
 
@@ -455,16 +550,17 @@ def _check_trunk(ws, bs):
         raise ValueError(f"the fused field is {DEPTH} layers of {H}")
 
 
-def deform_field(x, t_row, ws, bs, head_w, head_b) -> torch.Tensor:
+def deform_field(x, t_row, ws, bs, head_w, head_b, live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The fused deform field: x (N, 3), t_row (t_lanes,) the shared time
     embedding, ws / bs the eight trunk layers (torch layout: (256, fan_in),
     fan_in = x lanes + t lanes for layers 0 and 5's leading columns),
-    head_w (13, 256) and head_b (13,) the packed heads. Returns (N, 13) f32."""
+    head_w (13, 256) and head_b (13,) the packed heads, `live` (N,) bool or
+    None (the module docstring's live rows). Returns (N, 13) f32."""
     _check_trunk(ws, bs)
     inputs = (x, t_row, head_w, head_b, *ws, *bs)
     save = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
     return _DeformFieldFn.apply(
-        save, x.float().contiguous(), t_row.float().contiguous(), head_w.float().contiguous(),
+        save, live, x.float().contiguous(), t_row.float().contiguous(), head_w.float().contiguous(),
         head_b.float().contiguous(), *ws, *bs,
     )
 
@@ -482,11 +578,15 @@ def field_trunk_fwd(
     sources: int,
     x_lanes: int,  # embedding lanes of one source
     save: bool,
+    live: Optional[torch.Tensor] = None,  # (N,) bool, or None: every row
+    blocks: Optional[torch.Tensor] = None,  # live_blocks(live), or None: made here
 ):
     """Returns h (N, 256) bf16, the trunk's last activation, and with `save`
     the backward's inputs: the bf16 embedding (N_pad, 128) and activations
     (8, N_pad, 256), rows padded to a multiple of 128 (the padded rows hold
-    x = 0). With `save`, h is a view of the last activation, written once."""
+    x = 0). With `save`, h is a view of the last activation, written once.
+    With `live`, h is zero on the blocks with no live row, whose other saved
+    rows are not written."""
     n = xsrc.shape[0]
     dev = xsrc.device
     _check_lanes(sources, x_lanes, t_row.shape[0])
@@ -497,19 +597,21 @@ def field_trunk_fwd(
         ("bias", bias, torch.float32, (DEPTH, H)),
     ):
         _check(name, t, dt, dev, shape)
+    blocks = _blocks_for(live, blocks, n, dev)
     if _device_kind(dev) == "cpu":
-        return field_trunk_fwd_plain(xsrc, t_row, wpack, bias, sources, x_lanes, save)
+        return field_trunk_fwd_plain(xsrc, t_row, wpack, bias, sources, x_lanes, save, live)
     h = None if save else torch.empty((n, H), dtype=torch.bfloat16, device=dev)
-    saved = _launch_fwd(False, xsrc, t_row, wpack, bias, None, None, sources, x_lanes, h, save)
+    saved = _launch_fwd(False, xsrc, t_row, wpack, bias, None, None, sources, x_lanes, h, save, blocks)
     LAUNCHES["field_fwd"] += 1
     return (saved[1][-1, :n] if save else h), saved
 
 
-def field_trunk_fwd_plain(xsrc, t_row, wpack, bias, sources: int, x_lanes: int, save: bool):
+def field_trunk_fwd_plain(xsrc, t_row, wpack, bias, sources: int, x_lanes: int, save: bool, live=None):
     """Plain PyTorch version of `field_trunk_fwd` (same inputs, same outputs)."""
     n = xsrc.shape[0]
     emb = _embed_plain(xsrc, t_row, sources, x_lanes, _padded_rows(n))
     acts = torch.stack(_trunk_fwd_plain(emb, wpack, bias)).to(torch.bfloat16)
+    acts[-1] = _dead_rows_zero(acts[-1], live)
     return (acts[-1, :n], (emb, acts)) if save else (acts[-1, :n].clone(), None)
 
 
@@ -521,9 +623,12 @@ def field_trunk_bwd(
     acts: torch.Tensor,  # (8, N_pad, 256) bf16, from the forward
     sources: int,
     x_lanes: int,
+    live: Optional[torch.Tensor] = None,  # the forward's
+    blocks: Optional[torch.Tensor] = None,  # the forward's live_blocks(live), or None: made here
 ):
     """Returns (dxsrc (N, 3 S), the row sum of d emb (128,), the packed trunk
-    weight gradient (f32), d bias (8, 256))."""
+    weight gradient (f32), d bias (8, 256)). With `live`, dxsrc is zero on
+    the blocks with no live row, and the sums run over the others."""
     n = xsrc.shape[0]
     n_pad = _padded_rows(n)
     dev = xsrc.device
@@ -536,20 +641,20 @@ def field_trunk_bwd(
         ("acts", acts, torch.bfloat16, (DEPTH, n_pad, H)),
     ):
         _check(name, t, dt, dev, shape)
+    blocks = _blocks_for(live, blocks, n, dev)
     if _device_kind(dev) == "cpu":
-        return field_trunk_bwd_plain(xsrc, dh, wpack, emb, acts, sources, x_lanes)
-    dx, demb, dpack, dbias, _, _ = _launch_bwd(False, xsrc, dh, wpack, None, emb, acts, sources, x_lanes)
+        return field_trunk_bwd_plain(xsrc, dh, wpack, emb, acts, sources, x_lanes, live)
+    dx, demb, dpack, dbias, _, _ = _launch_bwd(False, xsrc, dh, wpack, None, emb, acts, sources, x_lanes, blocks)
     LAUNCHES["field_bwd"] += 1
     return dx, demb, dpack, dbias
 
 
-def field_trunk_bwd_plain(xsrc, dh, wpack, emb, acts, sources: int, x_lanes: int):
+def field_trunk_bwd_plain(xsrc, dh, wpack, emb, acts, sources: int, x_lanes: int, live=None):
     """Plain PyTorch version of `field_trunk_bwd` (same inputs, same outputs)."""
-    n = xsrc.shape[0]
-    a = [acts[i, :n].float() for i in range(DEPTH)]
+    dh, a, e = _bwd_rows_plain(dh, acts, emb, live)
     g = dh * (a[DEPTH - 1] > 0)
-    d_emb, dpack, dbias = _trunk_bwd_plain(g, wpack, a, emb[:n].float())
-    return _embed_bwd_plain(xsrc, d_emb, sources, x_lanes), d_emb.sum(0), dpack, dbias
+    d_emb, dpack, dbias = _trunk_bwd_plain(g, wpack, a, e)
+    return _dead_rows_zero(_embed_bwd_plain(xsrc, d_emb, sources, x_lanes), live), d_emb.sum(0), dpack, dbias
 
 
 class _FieldTrunkFn(torch.autograd.Function):
@@ -558,36 +663,41 @@ class _FieldTrunkFn(torch.autograd.Function):
     the JAX package's cast of the trunk output to f32 does."""
 
     @staticmethod
-    def forward(ctx, save, sources, xsrc, t_row, *trunk):
+    def forward(ctx, save, sources, live, xsrc, t_row, *trunk):
         ws, bs = trunk[:DEPTH], trunk[DEPTH:]
         in_ch = ws[0].shape[1]
         x_lanes = (in_ch - t_row.shape[0]) // sources
         wpack = pack_trunk(ws, in_ch)
         bias = torch.stack([b.float() for b in bs]).contiguous()
-        h, saved = field_trunk_fwd(xsrc, t_row, wpack, bias, sources, x_lanes, save)
+        blocks = _blocks_for(live, None, xsrc.shape[0], xsrc.device)
+        h, saved = field_trunk_fwd(xsrc, t_row, wpack, bias, sources, x_lanes, save, live, blocks)
         if save:
-            ctx.save_for_backward(xsrc, wpack, *saved)
+            ctx.save_for_backward(xsrc, wpack, *saved, live, blocks)
             ctx.dims = (in_ch, sources, x_lanes, t_row.shape[0])
         return h
 
     @staticmethod
     def backward(ctx, dh):
-        xsrc, wpack, emb, acts = ctx.saved_tensors
+        xsrc, wpack, emb, acts, live, blocks = ctx.saved_tensors
         in_ch, sources, x_lanes, t_lanes = ctx.dims
-        dx, demb, dpack, dbias = field_trunk_bwd(xsrc, dh.float().contiguous(), wpack, emb, acts, sources, x_lanes)
+        dx, demb, dpack, dbias = field_trunk_bwd(
+            xsrc, dh.float().contiguous(), wpack, emb, acts, sources, x_lanes, live, blocks
+        )
         lanes = sources * x_lanes
-        return None, None, dx, demb[lanes : lanes + t_lanes], *unpack_trunk(dpack, in_ch), *dbias.unbind(0)
+        return None, None, None, dx, demb[lanes : lanes + t_lanes], *unpack_trunk(dpack, in_ch), *dbias.unbind(0)
 
 
 def field_trunk(
-    x: torch.Tensor, value: Optional[torch.Tensor], t_row: Optional[torch.Tensor], ws, bs
+    x: torch.Tensor, value: Optional[torch.Tensor], t_row: Optional[torch.Tensor], ws, bs,
+    live: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The fused field trunk: the embedding of x (N, 3) and, for the control
     field, of the per-point value (N, 3), plus the shared time row t_row
     (t_lanes,) for the deform field; ws / bs the eight trunk layers (torch
     layout: (256, fan_in), fan_in = the embedding lanes for layers 0 and 5's
-    leading columns). Returns the last activation (N, 256), f32 holding bf16
-    values; differentiable in x, value, t_row and every weight."""
+    leading columns); `live` (N,) bool or None (the module docstring's live
+    rows). Returns the last activation (N, 256), f32 holding bf16 values;
+    differentiable in x, value, t_row and every weight."""
     _check_trunk(ws, bs)
     srcs = [x] if value is None else [x, value]
     xsrc = torch.cat([s.float() for s in srcs], dim=1).contiguous()
@@ -595,7 +705,7 @@ def field_trunk(
         t_row = x.new_zeros((0,), dtype=torch.float32)
     inputs = (*srcs, t_row, *ws, *bs)
     save = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
-    h = _FieldTrunkFn.apply(save, len(srcs), xsrc, t_row.float().contiguous(), *ws, *bs)
+    h = _FieldTrunkFn.apply(save, len(srcs), live, xsrc, t_row.float().contiguous(), *ws, *bs)
     return h.float()
 
 
@@ -609,11 +719,15 @@ def trunk_fwd(
     wpack: torch.Tensor,  # packed trunk weights, bf16
     bias: torch.Tensor,  # (8, 256) f32
     save: bool,
+    live: Optional[torch.Tensor] = None,  # (N,) bool, or None: every row
+    blocks: Optional[torch.Tensor] = None,  # live_blocks(live), or None: made here
 ):
     """Returns h (N, 256) bf16, the trunk's last activation, and with `save`
     the backward's inputs: the bf16 embedding (N_pad, 128) and activations
     (8, N_pad, 256), rows padded to a multiple of 128 (zero embedding rows).
-    With `save`, h is a view of the last activation, written once."""
+    With `save`, h is a view of the last activation, written once. With
+    `live`, h is zero on the blocks with no live row, whose other saved rows
+    are not written."""
     n = inp.shape[0]
     dev = inp.device
     for name, t, dt, shape in (
@@ -622,22 +736,24 @@ def trunk_fwd(
         ("bias", bias, torch.float32, (DEPTH, H)),
     ):
         _check(name, t, dt, dev, shape)
+    blocks = _blocks_for(live, blocks, n, dev)
     if _device_kind(dev) == "cpu":
-        return trunk_fwd_plain(inp, wpack, bias, save)
+        return trunk_fwd_plain(inp, wpack, bias, save, live)
     h = None if save else torch.empty((n, H), dtype=torch.bfloat16, device=dev)
     no_row = inp.new_zeros((0,))
-    saved = _launch_fwd(False, inp, no_row, wpack, bias, None, None, 0, 0, h, save)
+    saved = _launch_fwd(False, inp, no_row, wpack, bias, None, None, 0, 0, h, save, blocks)
     LAUNCHES["trunk_fwd"] += 1
     return (saved[1][-1, :n] if save else h), saved
 
 
-def trunk_fwd_plain(inp, wpack, bias, save: bool):
+def trunk_fwd_plain(inp, wpack, bias, save: bool, live=None):
     """Plain PyTorch version of `trunk_fwd` (same inputs, same outputs)."""
     n = inp.shape[0]
     emb = torch.zeros((_padded_rows(n), EMB), dtype=torch.float32, device=inp.device)
     emb[:n] = inp
     emb = emb.to(torch.bfloat16)
     acts = torch.stack(_trunk_fwd_plain(emb, wpack, bias)).to(torch.bfloat16)
+    acts[-1] = _dead_rows_zero(acts[-1], live)
     return (acts[-1, :n], (emb, acts)) if save else (acts[-1, :n].clone(), None)
 
 
@@ -646,9 +762,13 @@ def trunk_bwd(
     wpack: torch.Tensor,
     emb: torch.Tensor,  # (N_pad, 128) bf16, from the forward
     acts: torch.Tensor,  # (8, N_pad, 256) bf16, from the forward
+    live: Optional[torch.Tensor] = None,  # the forward's
+    blocks: Optional[torch.Tensor] = None,  # the forward's live_blocks(live), or None: made here
 ):
     """Returns (d emb (N, 128) f32, the packed trunk weight gradient (f32),
-    d bias (8, 256)). Lanes the weights do not read get exact zeros."""
+    d bias (8, 256)). Lanes the weights do not read get exact zeros. With
+    `live`, d emb is zero on the blocks with no live row, and the sums run
+    over the others."""
     n = dh.shape[0]
     n_pad = _padded_rows(n)
     dev = dh.device
@@ -659,19 +779,20 @@ def trunk_bwd(
         ("acts", acts, torch.bfloat16, (DEPTH, n_pad, H)),
     ):
         _check(name, t, dt, dev, shape)
+    blocks = _blocks_for(live, blocks, n, dev)
     if _device_kind(dev) == "cpu":
-        return trunk_bwd_plain(dh, wpack, emb, acts)
-    d_emb, _, dpack, dbias, _, _ = _launch_bwd(False, None, dh, wpack, None, emb, acts, 0, 0)
+        return trunk_bwd_plain(dh, wpack, emb, acts, live)
+    d_emb, _, dpack, dbias, _, _ = _launch_bwd(False, None, dh, wpack, None, emb, acts, 0, 0, blocks)
     LAUNCHES["trunk_bwd"] += 1
     return d_emb, dpack, dbias
 
 
-def trunk_bwd_plain(dh, wpack, emb, acts):
+def trunk_bwd_plain(dh, wpack, emb, acts, live=None):
     """Plain PyTorch version of `trunk_bwd` (same inputs, same outputs)."""
-    n = dh.shape[0]
-    a = [acts[i, :n].float() for i in range(DEPTH)]
+    dh, a, e = _bwd_rows_plain(dh, acts, emb, live)
     g = dh * (a[DEPTH - 1] > 0)
-    return _trunk_bwd_plain(g, wpack, a, emb[:n].float())
+    d_emb, dpack, dbias = _trunk_bwd_plain(g, wpack, a, e)
+    return _dead_rows_zero(d_emb, live), dpack, dbias
 
 
 class _TrunkFn(torch.autograd.Function):
@@ -680,31 +801,33 @@ class _TrunkFn(torch.autograd.Function):
     package's cast of the trunk output to f32 does."""
 
     @staticmethod
-    def forward(ctx, save, inp, *trunk):
+    def forward(ctx, save, live, inp, *trunk):
         ws, bs = trunk[:DEPTH], trunk[DEPTH:]
         in_ch = ws[0].shape[1]
         wpack = pack_trunk(ws, in_ch)
         bias = torch.stack([b.float() for b in bs]).contiguous()
-        h, saved = trunk_fwd(inp, wpack, bias, save)
+        blocks = _blocks_for(live, None, inp.shape[0], inp.device)
+        h, saved = trunk_fwd(inp, wpack, bias, save, live, blocks)
         if save:
-            ctx.save_for_backward(wpack, *saved)
+            ctx.save_for_backward(wpack, *saved, live, blocks)
             ctx.in_ch = in_ch
         return h
 
     @staticmethod
     def backward(ctx, dh):
-        wpack, emb, acts = ctx.saved_tensors
-        d_emb, dpack, dbias = trunk_bwd(dh.float().contiguous(), wpack, emb, acts)
-        return None, d_emb, *unpack_trunk(dpack, ctx.in_ch), *dbias.unbind(0)
+        wpack, emb, acts, live, blocks = ctx.saved_tensors
+        d_emb, dpack, dbias = trunk_bwd(dh.float().contiguous(), wpack, emb, acts, live, blocks)
+        return None, None, d_emb, *unpack_trunk(dpack, ctx.in_ch), *dbias.unbind(0)
 
 
-def fused_trunk(x_emb: torch.Tensor, t_emb: torch.Tensor, ws, bs) -> torch.Tensor:
+def fused_trunk(x_emb: torch.Tensor, t_emb: torch.Tensor, ws, bs, live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The 8x256 trunk on (x_emb (N, E1), t_emb (N, E2) or (1, E2),
     broadcast), the port of `mlp_pallas.py:fused_trunk`: ws / bs the eight
     trunk layers (torch layout (256, fan_in): layer 0's fan_in E1 + E2, layer
-    5's E1 + E2 + 256), E1 + E2 <= 128. Returns the last activation (N, 256),
-    f32 holding bf16 values; differentiable in x_emb, t_emb (a broadcast
-    t_emb's gradient is the sum over the rows), ws and bs."""
+    5's E1 + E2 + 256), E1 + E2 <= 128; `live` (N,) bool or None (the module
+    docstring's live rows). Returns the last activation (N, 256), f32
+    holding bf16 values; differentiable in x_emb, t_emb (a broadcast t_emb's
+    gradient is the sum over the rows), ws and bs."""
     _check_trunk(ws, bs)
     n, e1 = x_emb.shape
     e2 = t_emb.shape[-1]
@@ -717,4 +840,4 @@ def fused_trunk(x_emb: torch.Tensor, t_emb: torch.Tensor, ws, bs) -> torch.Tenso
         dim=1,
     ).contiguous()
     save = torch.is_grad_enabled() and any(t.requires_grad for t in (x_emb, t_emb, *ws, *bs))
-    return _TrunkFn.apply(save, inp, *ws, *bs).float()
+    return _TrunkFn.apply(save, live, inp, *ws, *bs).float()

@@ -52,7 +52,7 @@ def vote_gaussian_masks_one_frame(
     compositor. 0.0 is the reference's behavior (no gate)."""
     means = params["means"]
     if deform is not None:
-        d_xyz, _, _ = deform(means, camera.time.reshape(1, 1))
+        d_xyz, _, _ = deform(means, camera.time.reshape(1, 1), live=alive)
         means = apply_se3_deform(means, d_xyz)
     render, alpha_img, info = rasterization(
         means,

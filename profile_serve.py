@@ -5,6 +5,7 @@ PyTorch port on one NVIDIA GPU.
     python3 profile_serve.py train    # the stage-1 training step
     python3 profile_serve.py stage2   # serving the stage-2 slider viewer
     python3 profile_serve.py train2   # the stage-2 (control) training step
+    python3 profile_serve.py graphs   # the graphed steps and the eval sweep at the verbs' capacity
 
 Builds the scene of `chip_smoke.py` (100k Gaussians at the bench.py
 operating point, a full 8x256 bf16 deform field), and for the stage-2
@@ -51,6 +52,16 @@ train2 phase as for training, with the layers control state (the two
 deform-trunk calls), control field forward, projection, SH, binning,
 compositor forward, SSIM + L1, the backward (inside it the field trunk's
 backward, the compositor backward and the reduction) and Adam.
+
+`graphs` runs `chip_smoke.py`'s phases 24 and 25 alone over its phase-13
+dataset (the bench scene loaded into the verbs' trainers, capacity 2^18,
+1e5 alive): both stages with `scan_chunk` 10 against the eager loop, and
+the eval sweep of both stages against the per-frame loop, then one JSON
+line of their device ms a step or a frame, the field kernels' ms from the
+profiler windows, wall ms a step and frames/s. It reads `chip_smoke` from
+this file's directory, so a copy of this file beside another checkout's
+`chip_smoke.py` (one with the same phase functions) measures that
+checkout: two trees compare in one call.
 
 The layer timings add synchronizations the plain request or step does not
 have, so they sum to more; the request, the step and the device share come
@@ -331,6 +342,34 @@ def profile_size(model, width: int, height: int, stage2: bool = False) -> dict:
     }
 
 
+def profile_graphs(tmp: Path, model) -> dict:
+    """`chip_smoke.py`'s phases 24 and 25 over its phase-13 dataset, and
+    their readings by stage: the graphed step (device ms a step, wall ms a
+    step, the field kernels' and the compositor's ms a step) and the sweep
+    (frames/s, device ms a frame, the kernels' ms a frame)."""
+    card = chip_smoke.phase_device()
+    data = chip_smoke.phase_dataset(tmp, model)
+    bench = chip_smoke.bench_inputs(tmp, data, model)
+    graphs = chip_smoke.phase_graphs(tmp, data, model, card, bench)
+    sweep = chip_smoke.phase_sweep(tmp, data, model, card, bench)
+    frames = chip_smoke.DATA_FRAMES
+    out = {}
+    for stage in ("stage1", "stage2"):
+        g = graphs[stage]["time"]["graphed"]
+        w = sweep[stage]["time"]["sweep"]
+        out[stage] = {
+            "graphed_device_ms_per_step": g["device_ms_per_step"],
+            "graphed_wall_ms_per_step": graphs[stage]["time"]["graphed"]["wall_ms_per_step"],
+            "graphed_kernels_ms_per_step": g.get("port_kernels_ms_per_step"),
+            "graphed_bit_equal": graphs[stage]["check"]["bit_equal"],
+            "sweep_median_fps": w["median_fps"],
+            "sweep_device_ms_per_frame": w["device_ms_per_call"] / frames,
+            "sweep_kernels_ms_per_frame": {k: v / frames for k, v in w.get("port_kernels_ms_per_call", {}).items()},
+            "sweep_max_abs_diff": sweep[stage]["max_abs_diff"],
+        }
+    return out
+
+
 def main():
     chip_smoke.preflight()
     from freegaussian_tpu_torch.models.torch_compat import load_reference_checkpoint
@@ -342,15 +381,17 @@ def main():
         mode = sys.argv[1:]
         if mode in (["stage2"], ["train2"]):
             _, _, model2 = chip_smoke.phase_scene2(Path(tmp), model)
+        if mode == ["graphs"]:
+            print(json.dumps(profile_graphs(Path(tmp), model)))
     if mode == ["train"]:
         print(json.dumps(profile_train(model)))
     elif mode == ["stage2"]:
         print(json.dumps(profile_size(model2, *chip_smoke.SERVE_WH, stage2=True)))
     elif mode == ["train2"]:
         print(json.dumps(profile_train2(model2)))
-    elif mode:
-        sys.exit(f"usage: {sys.argv[0]} [train | stage2 | train2]")
-    else:
+    elif mode and mode != ["graphs"]:
+        sys.exit(f"usage: {sys.argv[0]} [train | stage2 | train2 | graphs]")
+    elif not mode:
         for width, height in SIZES:
             print(json.dumps(profile_size(model, width, height)))
     print(

@@ -805,3 +805,141 @@ def test_cuda_field_fwd_matches_plain_around_the_block(cuda_device, kind, n):
     assert int((acts[0, :n] != actsp[0, :n]).sum()) <= max(1, n * 256 // 1000)
     if kind != "heads":
         assert torch.equal(out, acts[-1, :n])  # in training h is the last saved activation
+
+
+# --- live rows: the kernels with a block list (`live=`) --------------------------
+
+
+def _live_mask(n, kind, device):
+    """(N,) bool on `device`: "holed" 30% of the rows of the even 128-row
+    blocks (the odd ones dead), "one" the last row alone, "none"."""
+    r = np.arange(n)
+    if kind == "holed":
+        m = (np.random.default_rng(n).uniform(size=n) < 0.3) & ((r // 128) % 2 == 0)
+    elif kind == "one":
+        m = r == n - 1
+    else:
+        m = np.zeros(n, bool)
+    return torch.tensor(m, device=device)
+
+
+_FIELD_BWD = {
+    "heads": (mlp_cuda.deform_field_bwd, mlp_cuda.deform_field_bwd_plain),
+    "control": (mlp_cuda.field_trunk_bwd, mlp_cuda.field_trunk_bwd_plain),
+    "trunk": (mlp_cuda.trunk_bwd, mlp_cuda.trunk_bwd_plain),
+}
+
+
+def _bwd_args(kind, args, dout, emb, acts):
+    if kind == "heads":
+        return (args[0], dout, args[2], args[4], emb, acts, args[6])
+    if kind == "control":
+        return (args[0], dout, args[2], emb, acts, args[4], args[5])
+    return (dout, args[1], emb, acts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["holed", "one", "none"])
+@pytest.mark.parametrize("kind", ["heads", "control", "trunk"])
+@pytest.mark.parametrize("n", [127, 128, 129, 257])
+def test_cuda_field_live_matches_plain(cuda_device, n, kind, mask):
+    """With a live mask, forward and backward (from the kernel's own saved
+    tensors, a cotangent zero on dead rows as the callers give it): the
+    rows of live blocks bit-equal to the `live=None` kernel call in the
+    output and dx; zeros on the rows of dead blocks; within the budgets of
+    the plain version with the same mask; the weight gradients within the
+    backward's budget of the `None` call (its sums split elsewhere); two
+    calls bit-equal; over a freed NaN block, every output read is finite."""
+    fwd, plain, args = _field_fwd_case(cuda_device, kind, n, n + 71)
+    live = _live_mask(n, mask, cuda_device)
+    keep = mlp_cuda._live_block_rows(live)[:n]
+    poison = torch.full((8, 1 << 20), float("nan"), device=cuda_device)
+    del poison
+    out, (emb, acts) = fwd(*args, True, live=live)
+    out_serve, _ = fwd(*args, False, live=live)
+    out0, (emb0, acts0) = fwd(*args, True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.equal(out, out_serve)
+    assert torch.equal(out[keep], out0[keep]) and not out[~keep].any()
+    if kind != "heads":
+        assert torch.equal(out, acts[-1, :n])
+    want, _ = plain(*args, True, live=live)
+    assert torch.equal(want[~keep], out[~keep])
+    if live.any():
+        mx, nm = _rel(out[keep].float(), want[keep].float())
+        assert mx <= 1e-2 and nm <= 5e-3, (mx, nm)
+
+    g = torch.Generator(device="cpu").manual_seed(n + 72)
+    dout = torch.randn(out.shape, generator=g).to(cuda_device) * live[:, None]
+    if kind != "heads":
+        dout = dout.bfloat16().float()
+    bwd, bwd_plain = _FIELD_BWD[kind]
+    bargs = _bwd_args(kind, args, dout, emb, acts)
+    poison = torch.full((8, 1 << 20), float("nan"), device=cuda_device)
+    del poison
+    got = bwd(*bargs, live=live)
+    again = bwd(*bargs, live=live)
+    got0 = bwd(*_bwd_args(kind, args, dout, emb0, acts0))
+    torch.cuda.synchronize()
+    want = bwd_plain(*bargs, live=live)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[0][keep], got0[0][keep]) and not got[0][~keep].any()  # dx, or d emb
+    for i, (a, b, c) in enumerate(zip(got, want, got0)):
+        assert a.shape == b.shape and torch.isfinite(a).all(), (kind, i)
+        if b.abs().max() == 0:
+            assert not a.any() and not c.any(), (kind, i)
+            continue
+        for ref in (b, c):
+            mx, nm = _rel(a, ref)
+            assert mx <= 1e-2 and nm <= 1e-3, (kind, i, mx, nm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["heads", "control", "deform", "trunk"])
+def test_cuda_field_live_all_dead_writes_every_output(cuda_device, kind):
+    """No live row over freed NaN blocks: the output (training and serving
+    modes), dx and every sum are exact zeros, with one launch a call."""
+    n = 300
+    fwd, _, args = _field_fwd_case(cuda_device, kind, n, 81)
+    live = torch.zeros(n, dtype=torch.bool, device=cuda_device)
+    poison = torch.full((8, 1 << 20), float("nan"), device=cuda_device)
+    del poison
+    before = dict(mlp_cuda.LAUNCHES)
+    out, (emb, acts) = fwd(*args, True, live=live)
+    out_serve, _ = fwd(*args, False, live=live)
+    torch.cuda.synchronize()
+    assert not out.any() and not out_serve.any()
+    bwd, _ = _FIELD_BWD["control" if kind == "deform" else kind]
+    dout = torch.zeros(out.shape, device=cuda_device)
+    poison = torch.full((8, 1 << 20), float("nan"), device=cuda_device)
+    del poison
+    got = bwd(*_bwd_args("control" if kind == "deform" else kind, args, dout, emb, acts), live=live)
+    torch.cuda.synchronize()
+    for a in got:
+        assert torch.equal(a, torch.zeros_like(a))
+    names = {"heads": "deform", "control": "field", "deform": "field", "trunk": "trunk"}[kind]
+    assert mlp_cuda.LAUNCHES[f"{names}_fwd"] == before[f"{names}_fwd"] + 2
+    assert mlp_cuda.LAUNCHES[f"{names}_bwd"] == before[f"{names}_bwd"] + 1
+
+
+@pytest.mark.cuda
+def test_cuda_live_blocks_matches_the_cpu_list(cuda_device):
+    """The block list built on the card equals the CPU's, and a CUDA graph
+    that captures it reads the mask as it is at each replay."""
+    rng = np.random.default_rng(5)
+    masks = [torch.tensor(rng.uniform(size=1000) < p) for p in (0.0, 0.001, 0.02, 0.5, 1.0)]
+    for m in masks:
+        assert torch.equal(mlp_cuda.live_blocks(m.to(cuda_device)).cpu(), mlp_cuda.live_blocks(m))
+    live = masks[2].to(cuda_device)
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        mlp_cuda.live_blocks(live)  # warm-up off the default stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = mlp_cuda.live_blocks(live)
+    for m in masks:
+        live.copy_(m.to(cuda_device))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured.cpu(), mlp_cuda.live_blocks(m))

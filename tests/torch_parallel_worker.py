@@ -8,7 +8,11 @@ checkpoint). Each rank joins the group, builds the (data, tile) mesh, loads
 and replicates the state, takes the steps, and writes `rank<r>.pt`: the
 parameters, alive mask, densification statistics and Adam moments after
 the last step (sharded moments gathered), and every step's metrics. The
-test reads those files; it imports no JAX here.
+test reads those files; it imports no JAX here. A case of kind
+"collectives" checks the gather and halo collectives alone; one of kind
+"guard" takes one step with the deform field on its fused kernel path
+(the plain versions here) and records, for each call of the field, the
+`live` mask it got and the cotangent of its output (tests/test_torch_field_live.py).
 """
 
 import sys
@@ -69,12 +73,45 @@ def collectives(case_dir, rank, world):
                 "strided_sum": _all_reduce(strided)}, case_dir / f"rank{rank}.pt")
 
 
+def guard(case_dir, case, rank, world):
+    """One (1, world) step with primitive sharding and both flow losses
+    from `case`'s state, each deform-field call's `live` and output
+    cotangent saved."""
+    from freegaussian_tpu_torch.models import fields
+
+    calls, cots = [], []
+    real = fields.deform_field
+
+    def hooked(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append(kwargs.get("live"))
+        out.register_hook(lambda g: cots.append(g.detach().clone()))
+        return out
+
+    fields.deform_field = hooked
+    mesh = make_mesh(1, world)
+    cfg = SplatConfig(**case["model"])
+    optimizers = make_optimizers(OptimizersConfig(max_steps=1000))
+    deform = make_deform_field(cfg).reset_parameters(torch.Generator().manual_seed(case["seed"]))
+    state = create_train_state(case["params"], case["alive"], deform.requires_grad_(True), optimizers,
+                               generator=torch.Generator().manual_seed(case["seed"]))
+    replicate_state(state, mesh)
+    step = make_parallel_train_step(cfg, DensifyConfig(refine_start=10**9), optimizers, 1, mesh, case["hw"],
+                                    with_flow=True, with_refine=False)
+    _, metrics = step(state, _cameras(case["cams"]), case["images"], _cameras(case["cams0"]), case["flows"],
+                      case["depth0s"], sh_degree_now=3)
+    torch.save({"live": calls, "cotangents": cots, "loss": float(metrics["loss"])}, case_dir / f"rank{rank}.pt")
+
+
 def main(case_dir, rank, world, port):
     case = torch.load(case_dir / "case.pt", weights_only=False)
     assert ensure_distributed(f"tcp://127.0.0.1:{port}", world, rank, device="cpu") == (rank, world)
     assert host_shard_info() == (rank, world) and local_device_count() == 1
-    if case.get("kind") == "collectives":
-        collectives(case_dir, rank, world)
+    if case.get("kind") in ("collectives", "guard"):
+        if case["kind"] == "collectives":
+            collectives(case_dir, rank, world)
+        else:
+            guard(case_dir, case, rank, world)
         dist.destroy_process_group()
         return
     mesh = make_mesh(case["data"], case["tile"])
