@@ -23,6 +23,7 @@ import torch
 from ..data.cameras import Camera
 from ..models.control_model import control_forward
 from ..models.splat_model import SplatConfig, loss_fn, psnr
+from ..utils import profiling
 from .optimizers import Adam, apply_group_updates
 from .train_step import GAUSSIAN_GROUPS, TrainState, draw_background, params_by_group, state_metrics
 
@@ -42,7 +43,8 @@ def make_control_train_step(
     graph replays (every write in place, Adam's scalars from `scalars` when
     given) and `step_fn.groups(state)` the groups `state_metrics` checks;
     stage 2 has no refinement. The init time lives on the mask's device, so
-    the step copies nothing from the host."""
+    the step copies nothing from the host. The step marks its phases as the
+    stage-1 step does (`utils/profiling.py:mark`)."""
     init_t = torch.as_tensor(init_time, dtype=torch.float32).to(gaussian_mask.device)
 
     def groups_of(state):
@@ -56,14 +58,17 @@ def make_control_train_step(
             splat_cfg, params, alive, gaussian_mask, camera, state.control,
             deform=state.deform, init_time=init_t, sh_degree_now=sh_degree_now, train=True, background=bg,
         )
+        profiling.mark("loss", dev)
         losses = loss_fn(splat_cfg, outputs, batch, params, alive)
         total = losses["main_loss"] + losses["scale_reg"]
+        profiling.mark("backward", dev)
 
         groups = groups_of(state)
         if not train_gaussians:
             groups = {"control": groups["control"]}
         names = [(g, k) for g, ps in groups.items() for k in ps]
         grads = torch.autograd.grad(total, [groups[g][k] for g, k in names], allow_unused=True)
+        profiling.mark("optimizer", dev)
         grads_by_group = {g: {} for g in groups}
         for (g, k), grad in zip(names, grads):
             if grad is not None and g in GAUSSIAN_GROUPS:
@@ -71,6 +76,7 @@ def make_control_train_step(
                 grad = torch.where(alive.reshape((-1,) + (1,) * (grad.ndim - 1)), grad, torch.zeros_like(grad))
             grads_by_group[g][k] = grad
         apply_group_updates(optimizers, state.opt_states, groups, grads_by_group, scalars)
+        profiling.mark("bookkeeping", dev)
         with torch.no_grad():
             return {
                 "loss": total.detach(),
@@ -86,9 +92,11 @@ def make_control_train_step(
         sh_degree_now: int,
         draws: Optional[Dict[str, Any]] = None,
     ):
+        profiling.mark("forward", state.alive.device)
         metrics = core(state, camera, batch, sh_degree_now, draws)
         with torch.no_grad():
             metrics.update(state_metrics(state, groups_of(state)))
+        profiling.mark(profiling.END, state.alive.device)
         state.step += 1
         return state, metrics
 

@@ -33,6 +33,7 @@ from ..models.fields import ControlField, DeformField
 from ..models.gaussians import GaussianParams
 from ..models.splat_model import SplatConfig, background_color, forward, loss_fn, psnr
 from ..ops.flow import flow_supervision_loss, query_3d_gaussian_flow, rendered_flow_loss
+from ..utils import profiling
 from .optimizers import Adam, AdamState, apply_group_updates, init_opt_states
 
 GAUSSIAN_GROUPS = ("means", "scales", "quats", "features_dc", "features_rest", "opacities")
@@ -165,7 +166,12 @@ def make_train_step(
         parameters, alive mask, moments and statistics in place; returns the
         refine metrics or None.
       - `step_fn.groups(state)`: the parameter groups `state_metrics`
-        checks."""
+        checks.
+
+    `core` marks where the loss, the backward, the optimizer and the
+    bookkeeping begin (`utils/profiling.py:mark`); its caller marks the
+    forward's start and the step's end (`step_fn` around its three parts,
+    the chunk runner around its graphed body). A mark touches no data."""
     train_camera_opt = train_camera_opt or splat_cfg.camera_optimizer_mode != "off"
     use_bilagrid = splat_cfg.use_bilateral_grid
     use_flow = splat_cfg.flow_loss_weight > 0 or splat_cfg.flow_3d_loss_weight > 0
@@ -197,6 +203,7 @@ def make_train_step(
             render_flow=flow_active and splat_cfg.flow_loss_weight > 0,
             bilagrid=grids, image_idx=cam_idx,
         )
+        profiling.mark("loss", dev)
         losses = loss_fn(splat_cfg, outputs, batch, params, alive, apply_scale_reg=apply_scale_reg)
         total = losses["main_loss"] + losses["scale_reg"]
         if flow_active:
@@ -223,11 +230,13 @@ def make_train_step(
             total = total + camera_opt_reg_loss(cam_adjust)
         if grids is not None:
             total = total + 10.0 * total_variation_loss(grids)  # the reference's weight (freegaussian_model.py:989)
+        profiling.mark("backward", dev)
 
         groups = params_by_group(params, deform, camera_opt=cam_adjust, bilagrid=grids)
         names = [(g, k) for g, ps in groups.items() for k in ps]
         leaves = [groups[g][k] for g, k in names]
         grads = torch.autograd.grad(total, leaves + [sink], allow_unused=True)
+        profiling.mark("optimizer", dev)
         absgrad = grads[-1] if grads[-1] is not None else torch.zeros_like(sink)
         grads_by_group = {g: {} for g in groups}
         for (g, k), grad in zip(names, grads[:-1]):
@@ -236,6 +245,7 @@ def make_train_step(
                 grad = torch.where(alive.reshape((-1,) + (1,) * (grad.ndim - 1)), grad, torch.zeros_like(grad))
             grads_by_group[g][k] = grad
         apply_group_updates(optimizers, state.opt_states, groups, grads_by_group, scalars)
+        profiling.mark("bookkeeping", dev)
 
         # densification bookkeeping (the reference's AFTER_TRAIN_ITERATION callbacks)
         with torch.no_grad():
@@ -257,22 +267,23 @@ def make_train_step(
     def refine_at(state, step: int, last_size, draws):
         if not (step >= densify_cfg.refine_start and step % densify_cfg.refine_every == 0):
             return None
-        params = state.params
-        new_params, new_alive, _, refine_info = refine(
-            densify_cfg, params, state.alive, state.densify, step, last_size, num_train_data,
-            generator=state.generator, split_eps=draws.get("split_eps"),
-        )
-        for k in GAUSSIAN_GROUPS:
-            params[k].copy_(new_params[k])
-            zero_moment_rows(state.opt_states[k], refine_info["moment_zero_mask"], params[k])
-        state.alive.copy_(new_alive)
-        state.densify.reset_()
-        if refine_info["reset_opacity_moments"]:
-            st = state.opt_states["opacities"]
-            for moments in (st.mu, st.nu):
-                for v in moments.values():
-                    v.zero_()
-        return {k: refine_info[k] for k in ("num_split", "num_dup", "num_culled", "num_alive")}
+        with profiling.profile_section("refine", step=step):
+            params = state.params
+            new_params, new_alive, _, refine_info = refine(
+                densify_cfg, params, state.alive, state.densify, step, last_size, num_train_data,
+                generator=state.generator, split_eps=draws.get("split_eps"),
+            )
+            for k in GAUSSIAN_GROUPS:
+                params[k].copy_(new_params[k])
+                zero_moment_rows(state.opt_states[k], refine_info["moment_zero_mask"], params[k])
+            state.alive.copy_(new_alive)
+            state.densify.reset_()
+            if refine_info["reset_opacity_moments"]:
+                st = state.opt_states["opacities"]
+                for moments in (st.mu, st.nu):
+                    for v in moments.values():
+                        v.zero_()
+            return {k: refine_info[k] for k in ("num_split", "num_dup", "num_culled", "num_alive")}
 
     def step_fn(
         state: TrainState,
@@ -284,6 +295,7 @@ def make_train_step(
         cam_idx: int = 0,
     ):
         draws = draws or {}
+        profiling.mark("forward", state.alive.device)
         metrics = core(
             state, camera, batch, sh_degree_now, camera0, draws, cam_idx,
             warmed_up=state.step >= splat_cfg.warm_up, apply_scale_reg=state.step % 10 == 0,
@@ -291,6 +303,7 @@ def make_train_step(
         refined = refine_at(state, state.step, (camera.height, camera.width), draws)
         with torch.no_grad():
             metrics.update(state_metrics(state, groups_of(state)))
+        profiling.mark(profiling.END, state.alive.device)
         if refined is not None:
             metrics["refine"] = refined
         state.step += 1

@@ -48,6 +48,8 @@ from ..models.splat_model import SplatConfig, forward, make_control_field, make_
 from ..models.ssim import ssim
 from ..ops import mlp_cuda, rasterize_cuda
 from ..ops.math import resize_image
+from ..utils import profiling
+from ..utils.profiling import profile_section
 from .checkpoints import load_checkpoint, save_checkpoint
 from .optimizers import OptimizersConfig, adam_scalars, make_optimizers
 from .train_step import create_train_state, make_train_step, state_metrics
@@ -168,7 +170,7 @@ class Trainer:
             bilagrid = init_bilateral_grids(len(self.datamanager), device=dev)
         self.optimizers = make_optimizers(config.optimizers)
         self._arenas: Dict[int, DeviceArena] = {}
-        self.graph_stats = {"captures": 0, "capture_s": 0.0, "replays": 0, "replayed_launches": {}}
+        self.graph_stats = {"captures": 0, "capture_s": 0.0, "replays": 0, "replayed_launches": {}, "kernel_nodes": {}}
         self.eval_graph_stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
         self._eval_arena_cache: Optional[tuple] = None
         self._eval_sweep_cache: Optional[tuple] = None
@@ -386,39 +388,42 @@ class Trainer:
             return
         cap = self._isect_capacity()
         num = float(metrics["num_isects"])
-        if num > cap:
-            warnings.warn(
-                f"intersection overflow: {int(num)} > capacity {cap}; the deepest intersections of the largest "
-                "Gaussians were DROPPED this step (capacity is being grown)"
-            )
-        new_cap = None
-        low = 0 < num < 0.35 * cap
-        self._isect_low_streak = self._isect_low_streak + 1 if low else 0
-        self._isect_recent = (self._isect_recent + [num])[-10:]
-        since = self.state.step - (self._isect_last_rebuild if self._isect_last_rebuild is not None else -(1 << 30))
-        if num > 0.85 * cap:
-            new_cap = 2 * cap
-            ceiling = self._isect_capacity_ceiling()
-            if new_cap > ceiling:
-                new_cap = ceiling if cap < ceiling else None
+        with profile_section("tuner", reading=num, capacity=cap) as span:
+            if num > cap:
                 warnings.warn(
-                    f"intersection capacity clamped at the ceiling {ceiling} (measured {int(num)}): the step's "
-                    "per-slot buffers must fit the device. Deepest intersections of the largest Gaussians will "
-                    "be dropped while the scene stays this dense."
+                    f"intersection overflow: {int(num)} > capacity {cap}; the deepest intersections of the largest "
+                    "Gaussians were DROPPED this step (capacity is being grown)"
                 )
-        elif low and self._isect_low_streak >= 10 and cap > (1 << 14) and since >= 1500:
-            # headroom over the recent maximum, not the instant reading: the
-            # scheduled opacity resets spike the count for ~100 steps
-            new_cap = max(int(1.35 * max(self._isect_recent)), 1 << 14)
-            if new_cap >= cap:
-                new_cap = None
-            self._isect_shrinks += 1
-        if new_cap is not None:
-            self.config = dataclasses.replace(
-                self.config, splat=dataclasses.replace(self.config.splat, isect_capacity=new_cap)
-            )
-            self._isect_last_rebuild = int(self.state.step)
-            self._rebuild_step_fn()
+            new_cap = None
+            low = 0 < num < 0.35 * cap
+            self._isect_low_streak = self._isect_low_streak + 1 if low else 0
+            self._isect_recent = (self._isect_recent + [num])[-10:]
+            since = self.state.step - (self._isect_last_rebuild if self._isect_last_rebuild is not None else -(1 << 30))
+            if num > 0.85 * cap:
+                new_cap = 2 * cap
+                ceiling = self._isect_capacity_ceiling()
+                if new_cap > ceiling:
+                    new_cap = ceiling if cap < ceiling else None
+                    warnings.warn(
+                        f"intersection capacity clamped at the ceiling {ceiling} (measured {int(num)}): the step's "
+                        "per-slot buffers must fit the device. Deepest intersections of the largest Gaussians will "
+                        "be dropped while the scene stays this dense."
+                    )
+            elif low and self._isect_low_streak >= 10 and cap > (1 << 14) and since >= 1500:
+                # headroom over the recent maximum, not the instant reading: the
+                # scheduled opacity resets spike the count for ~100 steps
+                new_cap = max(int(1.35 * max(self._isect_recent)), 1 << 14)
+                if new_cap >= cap:
+                    new_cap = None
+                self._isect_shrinks += 1
+            if new_cap is not None:
+                self.config = dataclasses.replace(
+                    self.config, splat=dataclasses.replace(self.config.splat, isect_capacity=new_cap)
+                )
+                self._isect_last_rebuild = int(self.state.step)
+                with profile_section("tuner.rebuild", capacity=new_cap):
+                    self._rebuild_step_fn()
+            span.note(decision="keep" if new_cap is None else "grow" if new_cap > cap else "shrink")
 
     def _isect_capacity_ceiling(self) -> int:
         """The largest capacity whose per-slot step buffers fit half the
@@ -449,6 +454,7 @@ class Trainer:
         win_t, win_step = time.time(), start
         i = start
         while i < end:
+            profiling.set_chunk(i)
             splat = self.config.splat
             d = downscale_phase(splat, i)
             sh_deg = sh_degree_to_use(splat, i)
@@ -464,15 +470,16 @@ class Trainer:
                     stop = min(stop, (i // cad + 1) * cad)
             frames = self.datamanager.draw_indices(stop - i)
             stacked = self._chunk_runner(d, sh_deg).run(i, frames)
-            now = time.time()
-            sps = (stop - win_step) / max(now - win_t, 1e-9)
-            for s in range(i, stop):
-                if s % cfg.steps_per_log == 0:
-                    row = {k: float(v[s - i]) for k, v in stacked.items()}
-                    row["step"] = s
-                    row["steps_per_sec"] = sps
-                    last_metrics = row
-                    self._log_metrics(row, s)
+            with profile_section("chunk.log"):
+                now = time.time()
+                sps = (stop - win_step) / max(now - win_t, 1e-9)
+                for s in range(i, stop):
+                    if s % cfg.steps_per_log == 0:
+                        row = {k: float(v[s - i]) for k, v in stacked.items()}
+                        row["step"] = s
+                        row["steps_per_sec"] = sps
+                        last_metrics = row
+                        self._log_metrics(row, s)
             win_t, win_step = now, stop
             # the tuner reads the chunk's peak (an overflow inside a chunk is
             # seen at its end, as the per-step loop sees it at the next log)
@@ -518,18 +525,29 @@ class Trainer:
         cfg = self.config
         self._maybe_start_viewer()
         n = num_steps if num_steps is not None else cfg.max_num_iterations
-        if cfg.scan_chunk > 1:
-            return self._train_scan(n)
+        try:
+            if cfg.scan_chunk > 1:
+                return self._train_scan(n)
+            return self._train_steps(n)
+        finally:
+            profiling.set_chunk(None)
+
+    def _train_steps(self, n: int) -> Dict[str, float]:
+        """`n` steps of the per-step loop (`scan_chunk` 0 or 1)."""
+        cfg = self.config
         last_metrics: Dict[str, float] = {}
         start = int(self.state.step)
         win_t = time.time()  # steps/s over the steps since the last log or eval
         win_step = start
         for i in range(start, start + n):
-            idx, camera, batch = self.datamanager.next_train_indexed(i)
-            self.state, metrics = self._dispatch_step(i, idx, camera, batch)
+            profiling.set_chunk(i)
+            with profile_section("step.dispatch", step=i):
+                idx, camera, batch = self.datamanager.next_train_indexed(i)
+                self.state, metrics = self._dispatch_step(i, idx, camera, batch)
             if i % cfg.steps_per_log == 0:
                 self._maybe_grow_isect_capacity(metrics)
                 last_metrics = {k: float(v) for k, v in metrics.items() if k != "refine"}
+                profiling.flush_marks()  # the step's values came to the host
                 last_metrics["step"] = i
                 poisoned = not np.isfinite(last_metrics.get("loss", 0.0)) or not last_metrics.get("params_finite", 1.0)
                 if cfg.halt_on_nan and poisoned:
@@ -567,11 +585,15 @@ class Trainer:
         dm = self.eval_datamanager or self.datamanager
         if len(dm) == 0:
             return None
-        idx = step % len(dm)
-        camera, batch = dm.get_batch(idx)
-        rgb = self._render_rgb(camera)
-        gt = batch["image"][..., :3]
-        return {"step": step, "eval": "image", "eval_idx": idx, "psnr": float(psnr(rgb, gt)), "ssim": float(ssim(rgb, gt))}
+        with profile_section("eval.one", step=step):
+            idx = step % len(dm)
+            camera, batch = dm.get_batch(idx)
+            rgb = self._render_rgb(camera)
+            gt = batch["image"][..., :3]
+            return {
+                "step": step, "eval": "image", "eval_idx": idx, "psnr": float(psnr(rgb, gt)),
+                "ssim": float(ssim(rgb, gt)),
+            }
 
     def _eval_arena(self, dm: FullImageDatamanager, max_images: Optional[int]) -> Optional[DeviceArena]:
         """The eval split's first `max_images` frames stacked on the device
@@ -620,6 +642,10 @@ class Trainer:
         the device (`_EvalSweep`) with one host copy, as the JAX package's
         one-dispatch sweep; LPIPS and the dumps need each frame on the host,
         so they keep the per-frame loop, as do empty and mixed-size splits."""
+        with profile_section("eval.all", max_images=max_images):
+            return self._eval_all(max_images, dump_dir)
+
+    def _eval_all(self, max_images: Optional[int], dump_dir: Optional[Path]) -> Dict[str, float]:
         from ..models.metrics import lpips, lpips_available
         from ..viewer.png import encode_png
 
@@ -674,7 +700,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def save(self, step: int) -> Path:
         path = self.out_dir / "checkpoints"
-        save_checkpoint(path, step, self.state)
+        with profile_section("save", step=step):
+            save_checkpoint(path, step, self.state)
         return path
 
     def load(self, path: Path, step: Optional[int] = None) -> None:
@@ -700,21 +727,49 @@ def _capture(body, generator: Optional[torch.Generator] = None, pool=None):
     """`body` captured as a CUDA graph (in `pool`; `generator` registered so
     that a replay draws what the eager body would). The capture launches no
     kernel, so the launch counters are set back after it. Returns (graph,
-    capture seconds, each kernel's launches a replay)."""
+    capture seconds, each kernel's launches a replay, the graph's kernel
+    nodes)."""
     before = {name: table[name] for name, table in _LAUNCH_TABLES.items()}
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     if generator is not None:
         graph.register_generator_state(generator)
     t0 = time.perf_counter()
     with torch.cuda.graph(graph, pool=pool):
         body()
+    nodes = _kernel_nodes(graph.raw_cuda_graph())
+    graph.instantiate()
     seconds = time.perf_counter() - t0
     captured = {}
     for name, table in _LAUNCH_TABLES.items():
         if table[name] != before[name]:
             captured[name] = table[name] - before[name]
             table[name] = before[name]
-    return graph, seconds, captured
+    return graph, seconds, captured, nodes
+
+
+def _kernel_nodes(raw_graph: int) -> int:
+    """The kernel nodes of a captured CUDA graph (a `cudaGraph_t`, which is
+    libcuda's `CUgraph`), counted through libcuda's graph calls."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    get_nodes, get_type = cuda.cuGraphGetNodes, cuda.cuGraphNodeGetType
+    get_nodes.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_size_t)]
+    get_type.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    get_nodes.restype = get_type.restype = ctypes.c_int  # CUresult
+    n = ctypes.c_size_t(0)
+    if get_nodes(raw_graph, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if get_nodes(raw_graph, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind = ctypes.c_int(-1)
+    kernels = 0
+    for node in nodes:
+        if get_type(node, ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
 
 
 class _ChunkRunner:
@@ -739,7 +794,15 @@ class _ChunkRunner:
     launches at every replay. Refinement runs eagerly after its step (it
     reads counts on the host) and rewrites the step's state metrics. A
     capture or replay error raises: there is no eager fallback. On the CPU
-    every step runs eagerly through the same tables."""
+    every step runs eagerly through the same tables.
+
+    Each step marks its phases (`utils/profiling.py:mark`); a graph holds
+    its marks as event nodes, so its capture does not depend on whether
+    anything is recorded. While recording, each chunk adds the last
+    replay's phase times of every graph it replayed, weighted by its
+    replays, the graphs' replays and kernel nodes, and the field kernels'
+    live-block fill at its end, all read after the chunk's one copy of its
+    metrics to the host."""
 
     def __init__(self, trainer: Trainer, arena: DeviceArena, sh_deg: int, length: int):
         self.trainer = trainer
@@ -754,11 +817,15 @@ class _ChunkRunner:
         self.metrics: Optional[torch.Tensor] = None
         self.graphs: Dict[tuple, tuple] = {}
         self.pool = None
+        # the field kernels' live blocks at a chunk's end, copied to the host
+        # with the chunk's metrics while recording
+        self.block_count = torch.zeros(1, dtype=torch.int32, pin_memory=dev.type == "cuda")
 
     def _body(self, variant: tuple) -> None:
         """One step from the tables' row at the cursor; advances the cursor."""
         t = self.trainer
         k = self.cursor
+        profiling.mark("forward", k.device)
         frame = self.idx.index_select(0, k)
         camera, camera0, batch = self.arena.select(frame)
         row = self.scalars.index_select(0, k)[0]
@@ -772,54 +839,92 @@ class _ChunkRunner:
                 self.metrics = torch.zeros((self.idx.shape[0], len(self.keys)), device=k.device)
             self.metrics.index_copy_(0, k, torch.stack([metrics[n].float().reshape(()) for n in self.keys])[None])
             self.cursor.add_(1)
+        profiling.mark(profiling.END, k.device)
 
-    def _graphed(self, variant: tuple) -> None:
+    def _graphed(self, variant: tuple, step: int, first: bool) -> bool:
+        """The step of `variant` on the card: a replay of its graph, or its
+        warm-up and capture. Returns whether it replayed."""
         t, st = self.trainer, self.trainer.state
         entry = self.graphs.get(variant)
         if entry is not None:
-            graph, count_delta, launches = entry
-            graph.replay()
-            for g, dc in count_delta.items():
-                st.opt_states[g].count += dc
-            stats = t.graph_stats
-            stats["replays"] += 1
-            for name, c in launches.items():
-                stats["replayed_launches"][name] = stats["replayed_launches"].get(name, 0) + c
-            return
-        _warm_up(t.device, lambda: self._body(variant))  # the warm-up is this step, run eagerly
-        counts = {g: s.count for g, s in st.opt_states.items()}
-        graph, seconds, captured = _capture(lambda: self._body(variant), st.generator, self.pool)
-        t.graph_stats["capture_s"] += seconds
-        t.graph_stats["captures"] += 1
-        count_delta = {g: s.count - counts[g] for g, s in st.opt_states.items() if s.count != counts[g]}
-        for g in count_delta:
-            st.opt_states[g].count = counts[g]
-        self.pool = graph.pool()
-        self.graphs[variant] = (graph, count_delta, captured)
+            graph, count_delta, launches, _ = entry
+            with profile_section("chunk.step", step=step, variant=variant, first=first):
+                graph.replay()
+                for g, dc in count_delta.items():
+                    st.opt_states[g].count += dc
+                stats = t.graph_stats
+                stats["replays"] += 1
+                for name, c in launches.items():
+                    stats["replayed_launches"][name] = stats["replayed_launches"].get(name, 0) + c
+            return True
+        with profile_section("chunk.capture", step=step, variant=variant, first=first):
+            _warm_up(t.device, lambda: self._body(variant))  # the warm-up is this step, run eagerly
+            counts = {g: s.count for g, s in st.opt_states.items()}
+            marks: list = []
+
+            def body():
+                with profiling.capture_marks(marks):
+                    self._body(variant)
+
+            graph, seconds, captured, nodes = _capture(body, st.generator, self.pool)
+            t.graph_stats["capture_s"] += seconds
+            t.graph_stats["captures"] += 1
+            t.graph_stats["kernel_nodes"][variant] = nodes
+            count_delta = {g: s.count - counts[g] for g, s in st.opt_states.items() if s.count != counts[g]}
+            for g in count_delta:
+                st.opt_states[g].count = counts[g]
+            self.pool = graph.pool()
+            self.graphs[variant] = (graph, count_delta, captured, marks)
+        return False
 
     def run(self, start: int, frames: List[int]) -> Dict[str, np.ndarray]:
         """Steps start .. start + len(frames) - 1 on `frames`; returns each
         metric's values, one a step."""
         t, st = self.trainer, self.trainer.state
         n = len(frames)
-        self.idx[:n].copy_(torch.tensor(frames, dtype=torch.long))
-        table = [[adam_scalars(t.optimizers[g], st.opt_states[g].count + j) for g in self.groups] for j in range(n)]
-        self.scalars[:n].copy_(torch.tensor(table, dtype=torch.float32))
-        self.cursor.zero_()
+        with profile_section("chunk.prepare", steps=n):
+            self.idx[:n].copy_(torch.tensor(frames, dtype=torch.long))
+            table = [[adam_scalars(t.optimizers[g], st.opt_states[g].count + j) for g in self.groups] for j in range(n)]
+            self.scalars[:n].copy_(torch.tensor(table, dtype=torch.float32))
+            self.cursor.zero_()
+        replays: Dict[tuple, int] = {}
         for j in range(n):
             s = start + j
             variant = t._step_variant(s)
-            if t.device.type == "cuda":
-                self._graphed(variant)
-            else:
-                self._body(variant)
+            if t.device.type != "cuda":
+                with profile_section("chunk.step", step=s, variant=variant, first=j == 0):
+                    self._body(variant)
+            elif self._graphed(variant, s, j == 0):
+                replays[variant] = replays.get(variant, 0) + 1
             st.step += 1
             if t._refine_at(s, (self.arena.height, self.arena.width)) is not None:
                 with torch.no_grad():
                     for name, v in state_metrics(st, t._metric_groups()).items():
                         self.metrics[j, self.keys.index(name)] = v.float()
-        out = self.metrics[:n].cpu().numpy()
+        with profile_section("chunk.collect", steps=n):
+            recording = profiling.enabled()
+            if recording:  # the block list's live-block count, as the kernels take it
+                self.block_count.copy_(mlp_cuda.live_blocks(st.alive)[-1:], non_blocking=True)
+            out = self.metrics[:n].cpu().numpy()
+            if recording:
+                self._record(replays, int(out[-1, self.keys.index("gaussian_count")]))
         return {name: out[:, c] for c, name in enumerate(self.keys)}
+
+    def _record(self, replays: Dict[tuple, int], live: int) -> None:
+        """The chunk's counters, once its metrics are on the host: each
+        replayed graph's phases (its last replay's, weighted by its
+        replays), replays and kernel nodes, the eager steps' phases, and the
+        field kernels' `live` rows and the rows of the 128-row blocks that
+        hold them (`mlp_cuda.live_blocks`)."""
+        profiling.flush_marks()
+        cap = self.trainer._isect_capacity()
+        for variant, count in replays.items():
+            profiling.add_graph_phases(self.graphs[variant][3], count)
+            label = str((self.arena.width, self.arena.height, self.sh_deg, cap) + variant)
+            profiling.add("step.replays", count, key=label)
+            profiling.put("step.kernel_nodes", self.trainer.graph_stats["kernel_nodes"][variant], key=label)
+        profiling.add("field.live_rows", live)
+        profiling.add("field.block_rows", int(self.block_count[0]) * mlp_cuda.ROWS)
 
 
 class _EvalSweep:
@@ -864,8 +969,9 @@ class _EvalSweep:
 
     def _capture(self) -> None:
         """The warm-up frame, then the frame's graph."""
-        _warm_up(self.trainer.device, self._frame)
-        self.graph, seconds, self.launches = _capture(self._frame)
+        with profile_section("eval.capture"):
+            _warm_up(self.trainer.device, self._frame)
+            self.graph, seconds, self.launches, _ = _capture(self._frame)
         stats = self.trainer.eval_graph_stats
         stats["capture_s"] += seconds
         stats["captures"] += 1

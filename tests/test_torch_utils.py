@@ -15,6 +15,14 @@ from freegaussian_tpu_torch import utils
 from freegaussian_tpu_torch.viewer.server import ViewerServer
 
 
+@pytest.fixture(autouse=True)
+def _empty_tables():
+    """The port's totals table is process-wide, and every trainer span adds
+    to it: each test here starts from an empty one."""
+    utils.profiler_summary(reset=True)
+    yield
+
+
 def _exercise(mod):
     @mod.time_function
     def work():
