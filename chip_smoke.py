@@ -69,7 +69,8 @@ world size 1, with every kernel built from this checkout. Phases, printed as eac
               train_step_pixels_per_sec, each kernel's launches (zeroed just
               before the steps, read just after: per step one compositor and
               its backward, two deform-field forwards and backwards, at the
-              frame's time and the paired frame's), and the refine's split /
+              frame's time and the paired frame's, one Adam update of every
+              group), and the refine's split /
               dup / cull counts
   8. scene2   the stage-2 scene: a seeded control field (heads x 0.01) and a
               seeded (N, 3) cluster mask over ~30% of the Gaussians in three
@@ -95,7 +96,8 @@ world size 1, with every kernel built from this checkout. Phases, printed as eac
               every step, the median step time and train_step_pixels_per_sec,
               launches per step (three field-trunk forwards: the deform
               trunk at the init time and at the frame's, the control trunk;
-              one field-trunk backward; one compositor and its backward)
+              one field-trunk backward; one compositor and its backward;
+              one Adam update of every group)
  12. check2   a stage-2 frame and one stage-2 step at 160x120 on the GPU
               against the CPU, with the fields in f32 and, in six seeded
               cases, on the field-trunk kernels; the stage-1 checks'
@@ -239,8 +241,22 @@ world size 1, with every kernel built from this checkout. Phases, printed as eac
               eval_all with the sweep and with the loop in turns, 5 rounds
               each (fps), the first call and the capture apart, and one
               profiler window of each (busy share)
+ 26. adam     Adam's one-pass kernel (`csrc/adam.cu`) at the training
+              cells' shapes (`adam` lines): the six Gaussian tensors at
+              capacity 2^19, SH degree 3, 1e5 live slots at the head, and
+              the 8x256 deform field's (stage 1) or control field's (stage
+              2) weights, the SH gradients slices of one (2^19, 16, 3)
+              gradient as the step's are; one step of the kernel against the plain chain
+              from the same state, bit for bit; then each timed as replays
+              of a CUDA graph of one call, as the training step runs it:
+              the kernel, its bound (each element's p, g, mu and nu read
+              once and p, mu and nu written once, and the mask, at HBM3's
+              3.35 TB/s), the plain chain, and `torch._fused_adam_` over
+              the same tensors as a yardstick that the port never calls (it
+              leaves out the mask and takes one rate for all groups)
 
-Then one JSON line of kernel records and, last,
+Then one JSON line of kernel records (row 10, Adam's, after the nine of
+the bring-up table) and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Nothing catches a failure: any fault raises and the exit code is not 0. It
@@ -320,15 +336,15 @@ TRAIN_DENSIFY = dict(refine_start=10, refine_every=5, reset_alpha_every=30)
 # GPU vs CPU train step: the relative L2 difference of each Adam first moment
 TRAIN_CHECK_RTOL = 1e-2
 # one stage-1 training step's launches: the deform field runs at the frame's
-# time and at the paired frame's
-STEP_LAUNCHES = {"rasterize_fwd": 1, "rasterize_bwd": 1, "deform_fwd": 2, "deform_bwd": 2}
+# time and at the paired frame's; one Adam update of every group
+STEP_LAUNCHES = {"rasterize_fwd": 1, "rasterize_bwd": 1, "deform_fwd": 2, "deform_bwd": 2, "adam": 1}
 
 
 def kernel_modules():
     """The port's modules that launch kernels, each with its LAUNCHES and KERNEL_SOURCES."""
-    from freegaussian_tpu_torch.ops import mlp_cuda, rasterize_cuda
+    from freegaussian_tpu_torch.ops import adam_cuda, mlp_cuda, rasterize_cuda
 
-    return (rasterize_cuda, mlp_cuda)
+    return (rasterize_cuda, mlp_cuda, adam_cuda)
 
 
 def launches() -> dict:
@@ -501,6 +517,23 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Median device time of `fn` in ms as the training step runs it: one
+    call captured as a CUDA graph, its replays timed by `cuda_ms`, so that
+    the host's time to launch does not count."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
 
 
 def host_probe_ms() -> float:
@@ -1770,7 +1803,7 @@ def phase_train2(model2) -> dict:
     )
     # per step: the deform trunk at the init time and at the frame's, then
     # the control trunk; one control-trunk backward; one compositor pair
-    per_step = {"field_fwd": 3, "field_bwd": 1, "rasterize_fwd": 1, "rasterize_bwd": 1}
+    per_step = {"field_fwd": 3, "field_bwd": 1, "rasterize_fwd": 1, "rasterize_bwd": 1, "adam": 1}
     want = {name: TRAIN_STEPS * per_step.get(name, 0) for name in counts}
     if counts != want:
         raise AssertionError(f"launches {counts} in {TRAIN_STEPS} stage-2 train steps, want {want}")
@@ -1972,7 +2005,7 @@ def phase_train_verb(tmp: Path, data: Path) -> dict:
           f"median after it {steady:.2f} ({1e3 / steady:.2f} steps/s, {SERVE_WH[0] * SERVE_WH[1] / (steady / 1e3):.0f} px/s)")
     print(f"train verb eval: {json.dumps(eval_rows)}")
     print(f"train verb launches: {json.dumps(counts)}")
-    for name in ("rasterize_fwd", "rasterize_bwd", "deform_fwd", "deform_bwd"):
+    for name in ("rasterize_fwd", "rasterize_bwd", "deform_fwd", "deform_bwd", "adam"):
         if not counts[name] > 0:
             raise AssertionError(f"train verb launched {name} {counts[name]} times")
     if counts["rasterize_bwd_fwd"] != 0 or len(eval_rows) != VERB_STEPS // VERB_EVAL_AT:
@@ -2044,7 +2077,7 @@ def phase_train_control_verb(tmp: Path, data: Path, ckpt: Path, trainer) -> dict
           f"{mask.any(1).mean():.1%} of the live Gaussians; loss {losses[0]:.6f} -> {losses[-1]:.6f}; step ms first "
           f"{step_ms[0]:.1f}, median after the first epoch {statistics.median(step_ms[DATA_FRAMES:]):.2f}; "
           f"launches {json.dumps(counts)}")
-    for name in ("field_fwd", "field_bwd", "rasterize_fwd", "rasterize_bwd"):
+    for name in ("field_fwd", "field_bwd", "rasterize_fwd", "rasterize_bwd", "adam"):
         if not counts[name] > 0:
             raise AssertionError(f"train-control verb launched {name} {counts[name]} times")
     return {"trainer": ctrainer, "ckpt": out / "freegaussian" / "checkpoints", "over": over, "mask": mask_path,
@@ -2887,7 +2920,7 @@ def train_real_capture(capture: dict, model, bare_step_ms: float, card: str) -> 
           f"{losses[0]:.5f} -> {losses[-1]:.5f}; eval psnr {psnr}; launches {json.dumps(counts)} ({card})")
     if len(losses) != CAPTURE_STEPS or not all(np.isfinite(v) for v in losses) or len(eval_rows) != 1:
         raise AssertionError(f"captures train: losses {losses}, eval rows {eval_rows}")
-    for name in ("rasterize_fwd", "rasterize_bwd", "deform_fwd", "deform_bwd"):
+    for name in ("rasterize_fwd", "rasterize_bwd", "deform_fwd", "deform_bwd", "adam"):
         if not counts[name] > 0:
             raise AssertionError(f"captures train launched {name} {counts[name]} times")
     ckpt = bench_scene_checkpoint(trainer, model, root.parent / "real_bench_checkpoints", transform=capture["transform"],
@@ -2995,7 +3028,7 @@ def train_conerf_capture(root: Path, model, card: str) -> dict:
     if (cam.width, cam.height) != (NATIVE_WH[0] // 2, NATIVE_WH[1] // 2) or len(losses) != CONERF_STEPS \
             or not all(np.isfinite(v) for v in losses):
         raise AssertionError(f"captures conerf train: {cam.width}x{cam.height}, losses {losses}")
-    for name in ("rasterize_fwd", "rasterize_bwd", "deform_fwd", "deform_bwd"):
+    for name in ("rasterize_fwd", "rasterize_bwd", "deform_fwd", "deform_bwd", "adam"):
         if not counts[name] > 0:
             raise AssertionError(f"captures conerf train launched {name} {counts[name]} times")
     ckpt = bench_scene_checkpoint(trainer, model, root.parent / "conerf_bench_checkpoints", transform=np.eye(4, dtype=np.float32)[:3])
@@ -3244,7 +3277,7 @@ def phase_extras(tmp: Path, data: Path, model, card: str) -> dict:
     if not torch.equal(ev["trainer"].state.camera_opt.cpu(), saved["camera_opt"]):
         raise AssertionError("extras eval: the served adjustments are not the checkpoint's")
     for label, run in (("train", verb), ("eval", ev)):
-        need = ("rasterize_fwd", "rasterize_bwd", "deform_fwd", "deform_bwd") if label == "train" else ("rasterize_fwd", "deform_fwd")
+        need = ("rasterize_fwd", "rasterize_bwd", "deform_fwd", "deform_bwd", "adam") if label == "train" else ("rasterize_fwd", "deform_fwd")
         if not all(run["launches"][k] > 0 for k in need):
             raise AssertionError(f"extras {label} verb: launches {run['launches']}")
     print(f"extras train verb: {EXTRAS_VERB_STEPS} steps, loss {rows[0]['loss']:.6f} -> {rows[-1]['loss']:.6f}, setup "
@@ -3844,7 +3877,7 @@ def phase_graphs(tmp: Path, data: Path, model, card: str, bench: dict) -> dict:
         counts = {k: v + replayed.get(k, 0) for k, v in launches().items()}
         print(f"graphs {label} launches: eager warm-up steps {json.dumps(launches())}, replays "
               f"{graphed.graph_stats['replays']} adding {json.dumps(replayed)} ({card})")
-        want = ("rasterize_fwd", "rasterize_bwd") + (("field_fwd", "field_bwd") if control else ("deform_fwd", "deform_bwd"))
+        want = ("rasterize_fwd", "rasterize_bwd", "adam") + (("field_fwd", "field_bwd") if control else ("deform_fwd", "deform_bwd"))
         stats = graphed.graph_stats
         # each graph's first step is its eager warm-up, every other step a replay
         if graphed.device.type == "cuda" and not (
@@ -3987,6 +4020,85 @@ def trunk_bound(n: int, in_ch: int, save: bool, backward: bool):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+ADAM_CAPACITY = 2**19  # the training cells' Gaussian capacity
+ADAM_LIVE = 100_000
+ADAM_REPS = 50
+
+
+def phase_adam(card: str) -> dict:
+    """Phase 26: Adam's kernel at the training cells' shapes against the
+    plain chain (bit for bit) and its bound, with `torch._fused_adam_` as a
+    yardstick."""
+    import torch
+
+    from freegaussian_tpu_torch.engine.train_step import GAUSSIAN_GROUPS
+    from freegaussian_tpu_torch.models.fields import ControlField, DeformField
+    from freegaussian_tpu_torch.ops import adam_cuda
+    from freegaussian_tpu_torch.ops.adam_cuda import AdamGroup, adam_plain, adam_step
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    n = ADAM_CAPACITY
+    shapes = {"means": (3,), "scales": (3,), "quats": (4,), "features_dc": (3,), "features_rest": (45,), "opacities": (1,)}
+    alive = torch.zeros(n, dtype=torch.bool, device=dev)
+    alive[:ADAM_LIVE] = True
+    out = {}
+    for label, field_cls in (("deform", DeformField), ("control", ControlField)):
+        def rand(shape, scale):
+            return torch.randn(shape, generator=gen, device=dev) * scale
+
+        def four(shape):
+            return [rand(shape, 0.1), rand(shape, 1e-3), rand(shape, 1e-3), rand(shape, 1e-6).abs()]
+
+        gauss = [four((n,) + shapes[k]) for k in GAUSSIAN_GROUPS]
+        # the SH coefficients' gradients as the step gets them: slices of one (n, 16, 3) gradient
+        dc, rest = GAUSSIAN_GROUPS.index("features_dc"), GAUSSIAN_GROUPS.index("features_rest")
+        sh = torch.cat([gauss[dc][1][:, None, :], gauss[rest][1].view(n, 15, 3)], dim=1)
+        gauss[dc][1], gauss[rest][1] = sh[:, 0, :], sh[:, 1:, :].reshape(n, 45)
+        weights = [four(tuple(p.shape)) for _, p in field_cls().named_parameters()]
+        # the step's scalars at step 16801 of 30000 (bias corrections ~1)
+        scal = (-1.6e-4 * 5 * 2 * 0.01 ** (16801 / 30000), 1.0, float(1 / (1 - 0.999 ** 16802)))
+
+        def groups(state):
+            g_groups = [AdamGroup(0.9, 0.999, 1e-15, scal, [tuple(t)], masked=True) for t in state[: len(gauss)]]
+            return g_groups + [AdamGroup(0.9, 0.999, 1e-15, scal, [tuple(t) for t in state[len(gauss):]])]
+
+        state = gauss + weights
+        plain = [[t if j == 1 else t.clone() for j, t in enumerate(ts)] for ts in state]  # the same gradients
+        before = adam_cuda.LAUNCHES["adam"]
+        adam_step(groups(state), alive)
+        adam_plain(groups(plain), alive)
+        torch.cuda.synchronize()
+        if adam_cuda.LAUNCHES["adam"] - before != 1:
+            raise AssertionError(f"adam {label}: {adam_cuda.LAUNCHES['adam'] - before} launches for one step")
+        for ts_k, ts_p in zip(state, plain):
+            for j in (0, 2, 3):
+                if not torch.equal(ts_k[j].view(torch.int32), ts_p[j].view(torch.int32)):
+                    raise AssertionError(f"adam {label}: the kernel differs from the plain chain at {tuple(ts_k[j].shape)}")
+        elements = sum(ts[0].numel() for ts in state)
+        bytes_ = 28 * elements + n  # p, g, mu, nu read and p, mu, nu written once; the mask once
+        bound_ms = bytes_ / PEAK_BYTES * 1e3
+        ms = graph_ms(lambda: adam_step(groups(state), alive), ADAM_REPS)
+        plain_ms = graph_ms(lambda: adam_plain(groups(plain), alive), ADAM_REPS)
+        steps = [torch.zeros((), device=dev) for _ in plain]
+        grads = [t[1].contiguous() for t in plain]  # the library's multi-tensor apply takes dense tensors
+
+        def library():
+            torch._fused_adam_(
+                [t[0] for t in plain], grads, [t[2] for t in plain], [t[3] for t in plain], [], steps,
+                lr=1.6e-4, beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-15, amsgrad=False, maximize=False,
+            )
+
+        library_ms = graph_ms(library, ADAM_REPS)
+        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bytes": bytes_,
+               "elements": elements, "tensors": len(state)}
+        out[label] = row
+        print(f"adam {label}: {len(state)} tensors, {elements} elements, {bytes_ / 1e9:.4f} GB; kernel {ms:.4f} ms "
+              f"({bound_ms / ms * 100:.1f}% of the bound {bound_ms:.4f} ms, {bytes_ / ms / 1e6:.0f} GB/s); plain "
+              f"{plain_ms:.4f} ms; torch._fused_adam_ {library_ms:.4f} ms; kernel bit-equal to plain; {card}")
+    return out
+
+
 def main():
     preflight()
     import torch
@@ -4026,9 +4138,11 @@ def main():
         graphs = phase_graphs(Path(tmp), data, model, card, bench)
         t_graphs = time.perf_counter()
         sweep = phase_sweep(Path(tmp), data, model, card, bench)
-        print(f"phases 21-25: extras {t_extras - t_new:.1f} s, bands {t_bands - t_extras:.1f} s, "
+        t_sweep = time.perf_counter()
+        adam = phase_adam(card)
+        print(f"phases 21-26: extras {t_extras - t_new:.1f} s, bands {t_bands - t_extras:.1f} s, "
               f"parallel {t_parallel - t_bands:.1f} s, graphs {t_graphs - t_parallel:.1f} s, "
-              f"sweep {time.perf_counter() - t_graphs:.1f} s")
+              f"sweep {t_sweep - t_graphs:.1f} s, adam {time.perf_counter() - t_sweep:.1f} s")
     print(
         f"train verb median step {verb['median_step_ms']:.2f} ms against phase 7's bare step "
         f"{train['median_step_ms']:.2f} ms in this run ({verb['median_step_ms'] / train['median_step_ms']:.2f}x); "
@@ -4068,10 +4182,18 @@ def main():
     for name, line, mode in (("trunk_fwd", 155, "fwd"), ("trunk_bwd", 167, "bwd")):
         records.append(record(name, "deform_field.cu", f"freegaussian_tpu/ops/mlp_pallas.py:{line}",
                               trunk["launches"][name], trunk[mode]["max_abs_err"], trunk[mode]))
+    # row 10: the training steps' Adam update, once a step in phases 7 and 11; phase 26's timing (its launches apart)
+    row = adam["deform"]
+    records.append({
+        "name": "adam", "route": "cuda", "source": "freegaussian_tpu_torch/csrc/adam.cu",
+        "replaces": "none: optax's update, fused by XLA", "launches": train["launches"]["adam"] + train2["launches"]["adam"],
+        "max_abs_err": 0.0, "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": "bytes",
+        "library_ms": row["library_ms"],
+    })
     assert [r["name"] for r in records] == list(launches())
-    # phase 19's verbs (rows 1, 6 and 8, the 5 control steps' backwards); phases 20, 21 and 23's (rows 1, 2, 8, 9);
-    # phase 24's graphed chunks (rows 1, 2, 8, 9 in stage 1, 1, 2, 6, 7 in stage 2; replays included);
-    # phase 25's eval sweeps (rows 1 and 8 in stage 1, 1 and 6 in stage 2; replays included)
+    # phase 19's verbs (rows 1, 6 and 8, the 5 control steps' backwards; row 10); phases 20, 21 and 23's (rows 1, 2, 8,
+    # 9, 10); phase 24's graphed chunks (rows 1, 2, 8, 9 in stage 1, 1, 2, 6, 7 in stage 2, row 10 in both; replays
+    # included); phase 25's eval sweeps (rows 1 and 8 in stage 1, 1 and 6 in stage 2; replays included)
     for r in records:
         r["launches"] += sum(run["launches"][r["name"]] for run in (pipeline, captures, extras, parallel, graphs, sweep))
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -71,11 +71,11 @@ def make_control_train_step(
         profiling.mark("optimizer", dev)
         grads_by_group = {g: {} for g in groups}
         for (g, k), grad in zip(names, grads):
-            if grad is not None and g in GAUSSIAN_GROUPS:
-                # dead slots must not move
-                grad = torch.where(alive.reshape((-1,) + (1,) * (grad.ndim - 1)), grad, torch.zeros_like(grad))
             grads_by_group[g][k] = grad
-        apply_group_updates(optimizers, state.opt_states, groups, grads_by_group, scalars)
+        # dead slots must not move: the update masks the Gaussian groups' gradients by `alive`
+        apply_group_updates(
+            optimizers, state.opt_states, groups, grads_by_group, scalars, alive=alive, masked=GAUSSIAN_GROUPS
+        )
         profiling.mark("bookkeeping", dev)
         with torch.no_grad():
             return {

@@ -19,10 +19,12 @@ touched when moment rows are zeroed (densification), as in optax.
 
 The step's scalars, -lr(count - 1), 1 / (1 - b1^count) and
 1 / (1 - b2^count), are f32 values computed on the host (`adam_scalars`).
-The eager update applies them as Python scalars; a CUDA graph, in which a
-Python scalar would be a constant, reads the same f32 values from a device
-table row (`scalars`), and both multiply by them, so the two updates agree
-bit for bit.
+The eager update applies them as values; a CUDA graph, in which a value
+would be a constant, reads the same f32 values from a device table row
+(`scalars`), and both multiply by them, so the two updates agree bit for
+bit. Every group of a step is updated by one call of
+`ops/adam_cuda.py:adam_step`: one kernel launch on the card, the plain
+chain of elementwise operations on the CPU, bit-equal to each other.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..ops import adam_cuda
 from ..ops.math import exponential_decay_schedule
 
 ADAM_EPS = 1e-15
@@ -139,33 +142,42 @@ def adam_update(
     params: Dict[str, torch.Tensor],
     grads: Dict[str, Optional[torch.Tensor]],
     scalars: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
 ) -> None:
     """One Adam step of a group, in place on `params` and `state`. A missing
     gradient (None) counts as zeros, as JAX's gradient of an unused input.
     `scalars`: a (3,) f32 device row holding `adam_scalars(opt,
-    state.count)`, read in place of the host's (a CUDA graph's table)."""
-    if scalars is None:
-        neg_lr, inv_bc1, inv_bc2 = adam_scalars(opt, state.count)
-    else:
-        neg_lr, inv_bc1, inv_bc2 = scalars[0], scalars[1], scalars[2]
-    for k, p in params.items():
-        g = grads.get(k)
-        if g is None:
-            g = torch.zeros_like(p)
-        mu, nu = state.mu[k], state.nu[k]
-        mu.mul_(opt.b1).add_(g * (1 - opt.b1))
-        nu.mul_(opt.b2).add_((g * g) * (1 - opt.b2))
-        update = (mu * inv_bc1) / (torch.sqrt(nu * inv_bc2) + opt.eps)
-        p.add_(update * neg_lr)
+    state.count)`, read in place of the host's (a CUDA graph's table).
+    `alive`: the group's tensors are Gaussian slots, and a dead slot's
+    gradient counts as zeros."""
+    adam_cuda.adam_step([_group(opt, state, params, grads, scalars, alive is not None)], alive)
     state.count += 1
 
 
-def apply_group_updates(optimizers, opt_states, params_by_group, grads_by_group, scalars=None) -> None:
-    """Adam on every group of `params_by_group`, in place. `scalars`: each
-    group's (3,) device row of `adam_scalars` (a CUDA graph's table), by
-    group name."""
-    for name, params in params_by_group.items():
-        adam_update(
-            optimizers[name], opt_states[name], params, grads_by_group[name],
-            None if scalars is None else scalars[name],
-        )
+@torch.no_grad()
+def apply_group_updates(
+    optimizers, opt_states, params_by_group, grads_by_group, scalars=None, alive=None, masked=()
+) -> None:
+    """Adam on every group of `params_by_group`, in place, in one call of
+    `ops/adam_cuda.py:adam_step` (one kernel launch on the card). `scalars`:
+    each group's (3,) device row of `adam_scalars` (a CUDA graph's table),
+    by group name. `alive`: the (capacity,) slot mask; the gradients of the
+    groups named in `masked`, whose rows are its slots, count as zeros on
+    dead slots, so that dead slots do not move."""
+    adam_cuda.adam_step(
+        [
+            _group(optimizers[name], opt_states[name], params, grads_by_group[name],
+                   None if scalars is None else scalars[name], alive is not None and name in masked)
+            for name, params in params_by_group.items()
+        ],
+        alive,
+    )
+    for name in params_by_group:
+        opt_states[name].count += 1
+
+
+def _group(opt: Adam, state: AdamState, params, grads, scalars, masked: bool) -> adam_cuda.AdamGroup:
+    return adam_cuda.AdamGroup(
+        opt.b1, opt.b2, opt.eps, adam_scalars(opt, state.count) if scalars is None else scalars,
+        [(p, grads.get(k), state.mu[k], state.nu[k]) for k, p in params.items()], masked,
+    )

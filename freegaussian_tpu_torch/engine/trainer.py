@@ -46,7 +46,7 @@ from ..models.densify import DensifyConfig
 from ..models.gaussians import init_gaussians
 from ..models.splat_model import SplatConfig, forward, make_control_field, make_deform_field, psnr, sh_degree_to_use
 from ..models.ssim import ssim
-from ..ops import mlp_cuda, rasterize_cuda
+from ..ops import adam_cuda, mlp_cuda, rasterize_cuda
 from ..ops.math import resize_image
 from ..utils import profiling
 from ..utils.profiling import profile_section
@@ -711,7 +711,9 @@ class Trainer:
         self._eval_sweep_cache = None
 
 
-_LAUNCH_TABLES = {name: table for table in (rasterize_cuda.LAUNCHES, mlp_cuda.LAUNCHES) for name in table}
+_LAUNCH_TABLES = {
+    name: table for table in (rasterize_cuda.LAUNCHES, mlp_cuda.LAUNCHES, adam_cuda.LAUNCHES) for name in table
+}
 
 
 def _warm_up(dev: torch.device, body) -> None:

@@ -42,7 +42,7 @@ import torch
 import torch.distributed as dist
 
 from ..data.cameras import Camera
-from ..engine.optimizers import adam_update
+from ..engine.optimizers import adam_update, apply_group_updates
 from ..engine.train_step import GAUSSIAN_GROUPS, TrainState, draw_background, params_by_group
 from ..models.densify import DensifyConfig, refine, update_stats, zero_moment_rows
 from ..models.splat_model import SplatConfig, forward, psnr, scale_regularization
@@ -299,7 +299,6 @@ def make_parallel_train_step(
                 flat = reduce_(torch.cat([local[n].reshape(-1) for n in dense]))
                 for n, part in zip(dense, torch.split(flat, [local[n].numel() for n in dense])):
                     grads_by_group[n[0]][n[1]] = part.view_as(local[n])
-            keep = lambda x, a: torch.where(a.reshape((-1,) + (1,) * (x.ndim - 1)), x, torch.zeros_like(x))
             if zero1:
                 for k in GAUSSIAN_GROUPS:
                     g_full = local[(k, k)].to(wire) if wire is not None else local[(k, k)]
@@ -310,15 +309,14 @@ def make_parallel_train_step(
                         if part[k].shape[0] == capacity:
                             part[k] = part[k][mine].clone()
                     p_shard = params[k].detach()[mine].clone()
-                    adam_update(optimizers[k], st, {k: p_shard}, {k: keep(g_shard.float(), alive[mine])})
+                    adam_update(optimizers[k], st, {k: p_shard}, {k: g_shard.float()}, alive=alive[mine])
                     dist.all_gather_into_tensor(params[k].data, p_shard)
                 dense_groups = {g: ps for g, ps in groups.items() if g not in GAUSSIAN_GROUPS}
             else:
-                for k in GAUSSIAN_GROUPS:
-                    grads_by_group[k][k] = keep(grads_by_group[k][k], alive)
                 dense_groups = groups
-            for g, ps in dense_groups.items():
-                adam_update(optimizers[g], state.opt_states[g], ps, grads_by_group[g])
+            apply_group_updates(
+                optimizers, state.opt_states, dense_groups, grads_by_group, alive=alive, masked=GAUSSIAN_GROUPS
+            )
 
             dstate = update_stats(state.densify, radii, absgrad, (H, W))
             refine_info = None
