@@ -17,8 +17,9 @@ each function), rewritten without the CUDA dispatch:
   - the compositor contract (`ops/rasterize_ref.py`): front-to-back alpha
     compositing in depth order, alpha = min(0.999, o exp(-sigma)), skip
     alpha < 1/255, stop before the transmittance falls to 1e-4. Here it is
-    tiled (each pixel walks the depth-sorted Gaussians of its tile), so it
-    runs at full frame size with autograd;
+    tiled (each pixel walks the depth-sorted Gaussians of its tile) and each
+    chunk of tiles is recomputed in the backward, so it runs at full frame
+    size with autograd;
   - SSIM (`models/ssim.py`), the flow losses (`ops/flow.py`) and the
     learning-rate schedule (`ops/math.py:exponential_decay_schedule`).
 
@@ -279,10 +280,68 @@ def _bin(means2d, depths, radii_px, tile, tw, th):
     return gid[order], counts
 
 
+def _tile_block(m, con, op, col, valid, ox, oy, tile: int, count_walk: bool):
+    """One chunk of tiles: every (tile pixel, Gaussian slot) pair of the
+    (T, K) gathered inputs as a (T, P, K) block, composited front to back.
+    (render (T, P, C), alpha (T, P)[, walked pairs])."""
+    py_in, px_in = torch.meshgrid(torch.arange(tile, device=m.device), torch.arange(tile, device=m.device),
+                                  indexing="ij")
+    px_in, py_in = px_in.reshape(-1).float(), py_in.reshape(-1).float()
+    px = ox[:, None] + px_in[None, :] + 0.5  # (T, P)
+    py = oy[:, None] + py_in[None, :] + 0.5
+    dx = m[:, None, :, 0] - px[:, :, None]  # (T, P, K)
+    dy = m[:, None, :, 1] - py[:, :, None]
+    sigma = 0.5 * (con[:, None, :, 0] * dx * dx + con[:, None, :, 2] * dy * dy) + con[:, None, :, 1] * dx * dy
+    alpha = torch.clamp(op[:, None, :] * torch.exp(-sigma), max=MAX_ALPHA)
+    vis = valid[:, None, :] & (sigma >= 0) & (alpha >= ALPHA_THRESHOLD)
+    a_eff = torch.where(vis, alpha, torch.zeros_like(alpha))
+    one_minus = 1.0 - a_eff
+    excl = torch.cumprod(torch.cat([torch.ones_like(one_minus[..., :1]), one_minus[..., :-1]], -1), -1)
+    incl = excl * one_minus
+    done = torch.cummax((incl <= TRANSMITTANCE_EPS).to(torch.int32), dim=-1).values > 0
+    w = torch.where(vis & ~done, a_eff * excl, torch.zeros_like(a_eff))
+    out = (torch.einsum("tpk,tkc->tpc", w, col), w.sum(-1))
+    if count_walk:
+        out += ((valid[:, None, :] & ~done).sum() + done[..., -1].sum(),)
+    return out
+
+
+class _RecomputedBlock(torch.autograd.Function):
+    """`_tile_block` that keeps only its (T, K) inputs for the backward and
+    recomputes the (T, P, K) block there, by the same ops, to take its
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, m, con, op, col, valid, ox, oy, tile: int, count_walk: bool):
+        ctx.save_for_backward(m, con, op, col, valid, ox, oy)
+        ctx.tile = tile
+        out = _tile_block(m, con, op, col, valid, ox, oy, tile, count_walk)
+        if count_walk:
+            ctx.mark_non_differentiable(out[2])
+        return out
+
+    @staticmethod
+    def backward(ctx, g_render, g_alpha, *_):
+        m, con, op, col, valid, ox, oy = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (m, con, op, col)]
+            render, alpha = _tile_block(*leaves, valid, ox, oy, ctx.tile, False)
+            # a scalar whose gradients by render and alpha are g_render and
+            # g_alpha exactly (1 * g): `grad_outputs` would import sympy on
+            # the first call, seconds of every run's set-up
+            grads = torch.autograd.grad((render * g_render).sum() + (alpha * g_alpha).sum(), leaves)
+        return (*grads, None, None, None, None, None)
+
+
 def composite(means2d, conics, colors, opac, depths, radii_px, width: int, height: int, *, tile: int = 16,
               tiles_per_chunk: int = 32, count_walk: bool = False):
     """(render (H, W, C), alpha (H, W, 1)[, walked pairs]): every pixel
-    composites the Gaussians of its tile front to back."""
+    composites the Gaussians of its tile front to back.
+
+    The backward recomputes each chunk's (T, P, K) block from the chunk's
+    gathered (T, K) inputs (`_RecomputedBlock`), so what autograd keeps
+    grows with the pairs (T K), not with the pixels times the pairs
+    (T P K), and one chunk's block lives at a time."""
     dev = means2d.device
     tw, th = -(-width // tile), -(-height // tile)
     with torch.no_grad():
@@ -290,8 +349,6 @@ def composite(means2d, conics, colors, opac, depths, radii_px, width: int, heigh
         offsets = torch.cumsum(counts, 0) - counts
         counts_h, offsets_h = counts.tolist(), offsets.tolist()
     P = tile * tile
-    py_in, px_in = torch.meshgrid(torch.arange(tile, device=dev), torch.arange(tile, device=dev), indexing="ij")
-    px_in, py_in = px_in.reshape(-1).float(), py_in.reshape(-1).float()
     C = colors.shape[-1]
     renders, alphas, walked = [], [], 0
     for c0 in range(0, tw * th, tiles_per_chunk):
@@ -310,26 +367,12 @@ def composite(means2d, conics, colors, opac, depths, radii_px, width: int, heigh
             idx = torch.where(valid, gids[torch.clamp(off[:, None] + kk[None, :], max=max(gids.shape[0] - 1, 0))], 0)
             tt = torch.tensor(tiles, device=dev)
             ox, oy = (tt % tw).float() * tile, (tt // tw).float() * tile
-            px = ox[:, None] + px_in[None, :] + 0.5  # (T, P)
-            py = oy[:, None] + py_in[None, :] + 0.5
-        m, con, op, col = means2d[idx], conics[idx], opac[idx], colors[idx]  # (T, K, ...)
-        dx = m[:, None, :, 0] - px[:, :, None]  # (T, P, K)
-        dy = m[:, None, :, 1] - py[:, :, None]
-        sigma = 0.5 * (con[:, None, :, 0] * dx * dx + con[:, None, :, 2] * dy * dy) + con[:, None, :, 1] * dx * dy
-        alpha = torch.clamp(op[:, None, :] * torch.exp(-sigma), max=MAX_ALPHA)
-        vis = valid[:, None, :] & (sigma >= 0) & (alpha >= ALPHA_THRESHOLD)
-        a_eff = torch.where(vis, alpha, torch.zeros_like(alpha))
-        one_minus = 1.0 - a_eff
-        excl = torch.cumprod(torch.cat([torch.ones_like(one_minus[..., :1]), one_minus[..., :-1]], -1), -1)
-        incl = excl * one_minus
-        done = torch.cummax((incl <= TRANSMITTANCE_EPS).to(torch.int32), dim=-1).values > 0
-        w = torch.where(vis & ~done, a_eff * excl, torch.zeros_like(a_eff))
-        renders.append(torch.einsum("tpk,tkc->tpc", w, col))
-        alphas.append(w.sum(-1))
+        out = _RecomputedBlock.apply(means2d[idx], conics[idx], opac[idx], colors[idx], valid, ox, oy, tile,
+                                     count_walk)
+        renders.append(out[0])
+        alphas.append(out[1])
         if count_walk:
-            with torch.no_grad():
-                live = valid[:, None, :] & ~done
-                walked += int(live.sum()) + int(done[..., -1].sum())
+            walked += int(out[2])
     r = torch.cat(renders).reshape(th, tw, tile, tile, C).permute(0, 2, 1, 3, 4).reshape(th * tile, tw * tile, C)
     a = torch.cat(alphas).reshape(th, tw, tile, tile).permute(0, 2, 1, 3).reshape(th * tile, tw * tile)
     res = (r[:height, :width], a[:height, :width, None])

@@ -1,28 +1,29 @@
 """BENCHMARK.json against the benchmark's contract, and every file a cell
-needs found by its name."""
+needs found by its name: the repository's, and a copy holding an addition
+made as a later PR makes one (`helpers.planted_addition`)."""
 
 import re
 
 import pytest
 
-from helpers import FGBENCH, ROOT, bench
+from helpers import bench, tree  # noqa: F401
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 TOP_KEYS = {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end", "per_layer"}
 
 
-def test_top_level_and_paths():
-    b = bench()
+def test_top_level_and_paths(tree):
+    b = bench(tree)
     assert set(b) == TOP_KEYS
     assert b["command"] == ["python3", "fgbench/run.py"]
     assert b["paths"] == ["fgbench"]
     assert isinstance(b["run_seconds"], int) and 1 <= b["run_seconds"] <= 51
-    assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+    assert len((tree / "BENCHMARK.json").read_bytes()) <= 64 * 1024
 
 
-def test_names_and_units_use_the_allowed_characters():
-    b = bench()
+def test_names_and_units_use_the_allowed_characters(tree):
+    b = bench(tree)
     names = []
     for group in ("configs", "workloads", "end_to_end", "per_layer"):
         for e in b[group]:
@@ -41,8 +42,8 @@ def test_names_and_units_use_the_allowed_characters():
     assert len(set(names)) == len(names)
 
 
-def test_metric_keys_and_bounds():
-    b = bench()
+def test_metric_keys_and_bounds(tree):
+    b = bench(tree)
     e2e = {m["name"] for m in b["end_to_end"]}
     assert "setup_s" in e2e
     for m in b["end_to_end"]:
@@ -56,29 +57,30 @@ def test_metric_keys_and_bounds():
 
 
 @pytest.mark.parametrize("kind", ["configs", "workloads", "per_layer"])
-def test_every_file_is_found_by_name(kind):
+def test_every_file_is_found_by_name(kind, tree):
     import json
 
-    b = bench()
+    b = bench(tree)
+    fgbench = tree / "fgbench"
     cells = {w["name"] for w in b["workloads"]}
     for e in b[kind]:
         if kind == "configs":
-            path = ROOT / e["file"]
-            assert path.is_file() and path.parent == FGBENCH / "configs" and path.stem == e["name"]
+            path = tree / e["file"]
+            assert path.is_file() and path.parent == fgbench / "configs" and path.stem == e["name"]
             cfg = json.loads(path.read_text())
             assert cfg["source"] == e["source"]
             assert set(cfg["reduced"]) == set(e["reduced"])
         elif kind == "workloads":
-            assert (FGBENCH / "configs" / f"{e['config']}.json").is_file()
-            traffic = json.loads((FGBENCH / "traffic" / f"{e['traffic']}.json").read_text())
-            assert (FGBENCH / f"{traffic['kind']}.py").is_file()
+            assert (fgbench / "configs" / f"{e['config']}.json").is_file()
+            traffic = json.loads((fgbench / "traffic" / f"{e['traffic']}.json").read_text())
+            assert (fgbench / f"{traffic['kind']}.py").is_file()
         else:
-            assert (FGBENCH / "metrics" / f"{e['name']}.py").is_file()
+            assert (fgbench / "metrics" / f"{e['name']}.py").is_file()
             assert set(e.get("workloads", cells)) <= cells
 
 
-def test_every_cell_reports_setup_another_end_to_end_and_a_per_layer_metric():
-    b = bench()
+def test_every_cell_reports_setup_another_end_to_end_and_a_per_layer_metric(tree):
+    b = bench(tree)
     for w in b["workloads"]:
         name = w["name"]
         e2e = [m["name"] for m in b["end_to_end"] if name in m.get("workloads", [name])]

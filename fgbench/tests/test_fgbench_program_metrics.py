@@ -5,7 +5,7 @@ None from an empty one, an untraced run or a program without the record;
 
 import pytest
 
-from helpers import FGBENCH, bench
+from helpers import FGBENCH, TRAIN_CELLS, bench, tree  # noqa: F401
 
 EIGHT = {
     "step.forward_ms.train": ("ms", "program_span", "train step"),
@@ -130,14 +130,14 @@ def test_readers_on_the_program_s_own_record(profiling):
     assert values["step.kernels.train"] == 17 and values["field.live_block_fill.train"] == 75.0
 
 
-def test_benchmark_holds_the_eight_entries():
-    b = bench()
-    cells = ["s1_train_chunk10", "s2_train_chunk10"]
+def test_benchmark_holds_the_eight_entries(tree):
+    """Each of the eight reads in both training cells at least: a later
+    cell joins their lists, and later entries may follow them."""
+    b = bench(tree)
     got = {m["name"]: m for m in b["per_layer"]}
     for name, (unit, source, layer) in EIGHT.items():
         m = got[name]
-        assert (m["unit"], m["source"], m["layer"], m["moves"], m["workloads"]) == (
-            unit, source, layer, "train_step_ms", cells)
+        assert (m["unit"], m["source"], m["layer"], m["moves"]) == (unit, source, layer, "train_step_ms")
+        assert set(TRAIN_CELLS) <= set(m["workloads"])
         assert m["better"] == ("higher" if name.startswith("field.") else "lower")
-        assert (FGBENCH / "metrics" / f"{name}.py").is_file()
-    assert [m["name"] for m in b["per_layer"][-len(EIGHT):]] == list(EIGHT)
+        assert (tree / "fgbench" / "metrics" / f"{name}.py").is_file()
