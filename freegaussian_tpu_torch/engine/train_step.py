@@ -283,7 +283,7 @@ def make_train_step(
                 for moments in (st.mu, st.nu):
                     for v in moments.values():
                         v.zero_()
-            return {k: refine_info[k] for k in ("num_split", "num_dup", "num_culled", "num_alive")}
+            return {k: refine_info[k] for k in ("num_split", "num_dup", "num_culled", "num_alive", "num_dropped")}
 
     def step_fn(
         state: TrainState,

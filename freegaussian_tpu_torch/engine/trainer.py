@@ -802,9 +802,10 @@ class _ChunkRunner:
     its marks as event nodes, so its capture does not depend on whether
     anything is recorded. While recording, each chunk adds the last
     replay's phase times of every graph it replayed, weighted by its
-    replays, the graphs' replays and kernel nodes, and the field kernels'
-    live-block fill at its end, all read after the chunk's one copy of its
-    metrics to the host."""
+    replays, the graphs' replays and kernel nodes, the field kernels'
+    live-block fill at its end, and each refinement's counts (kept on the
+    device) and device time (between two pooled events), all read after
+    the chunk's one copy of its metrics to the host."""
 
     def __init__(self, trainer: Trainer, arena: DeviceArena, sh_deg: int, length: int):
         self.trainer = trainer
@@ -889,7 +890,9 @@ class _ChunkRunner:
             table = [[adam_scalars(t.optimizers[g], st.opt_states[g].count + j) for g in self.groups] for j in range(n)]
             self.scalars[:n].copy_(torch.tensor(table, dtype=torch.float32))
             self.cursor.zero_()
+        recording = profiling.enabled()
         replays: Dict[tuple, int] = {}
+        refines: List[tuple] = []  # while recording: (step, its counts on the device, start, end stamp)
         for j in range(n):
             s = start + j
             variant = t._step_variant(s)
@@ -899,17 +902,27 @@ class _ChunkRunner:
             elif self._graphed(variant, s, j == 0):
                 replays[variant] = replays.get(variant, 0) + 1
             st.step += 1
-            if t._refine_at(s, (self.arena.height, self.arena.width)) is not None:
+            before = profiling.stamp(t.device) if recording else None
+            refined = t._refine_at(s, (self.arena.height, self.arena.width))
+            if refined is not None:
                 with torch.no_grad():
                     for name, v in state_metrics(st, t._metric_groups()).items():
                         self.metrics[j, self.keys.index(name)] = v.float()
+                if recording:
+                    counts = torch.stack([refined[f"num_{k}"].reshape(()).long() for k in REFINE_COUNTS])
+                    refines.append((s, counts, before, profiling.stamp(t.device)))
+            elif recording:
+                profiling.release(before)
         with profile_section("chunk.collect", steps=n):
-            recording = profiling.enabled()
             if recording:  # the block list's live-block count, as the kernels take it
                 self.block_count.copy_(mlp_cuda.live_blocks(st.alive)[-1:], non_blocking=True)
+                if refines:
+                    refine_counts = torch.stack([c for _, c, _, _ in refines]).to("cpu", non_blocking=True)
             out = self.metrics[:n].cpu().numpy()
             if recording:
                 self._record(replays, int(out[-1, self.keys.index("gaussian_count")]))
+                for (s, _, a, b), row in zip(refines, refine_counts.tolist() if refines else ()):
+                    _record_refine(s, row, profiling.elapsed_ms(a, b))
         return {name: out[:, c] for c, name in enumerate(self.keys)}
 
     def _record(self, replays: Dict[tuple, int], live: int) -> None:
@@ -927,6 +940,19 @@ class _ChunkRunner:
             profiling.put("step.kernel_nodes", self.trainer.graph_stats["kernel_nodes"][variant], key=label)
         profiling.add("field.live_rows", live)
         profiling.add("field.block_rows", int(self.block_count[0]) * mlp_cuda.ROWS)
+
+
+# the counts of a refinement that the chunk runner records (`refine_at`'s num_<name>)
+REFINE_COUNTS = ("split", "dup", "culled", "alive", "dropped")
+
+
+def _record_refine(step: int, counts: List[int], device_ms: float) -> None:
+    """One refinement's counters, by its step: its counts and the device ms
+    between the stamps around it (the chunk's replays before it excluded)."""
+    profiling.add("refine.count", 1)
+    for name, value in zip(REFINE_COUNTS, counts):
+        profiling.put(f"refine.{name}", value, key=str(step))
+    profiling.put("refine.device_ms", device_ms, key=str(step))
 
 
 class _EvalSweep:

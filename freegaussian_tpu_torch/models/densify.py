@@ -13,7 +13,8 @@ Semantics of the reference (freegaussian_model.py:369-571):
     removed and (re)used slots.
 
 New Gaussians go into the dead slots in index order (a stable argsort of
-the alive mask), and what does not fit is dropped, as in the JAX package.
+the alive mask), and what does not fit is dropped, as in the JAX package;
+`refine`'s info counts the dropped rows (`num_dropped`).
 The split samples' normal draws come from a `torch.Generator`, or are
 passed in (`split_eps`) so that a test can hand both packages the same
 numbers. `refine` returns new tensors; the caller writes them back into the
@@ -128,7 +129,8 @@ def refine(
 ) -> Tuple[GaussianParams, torch.Tensor, DensifyState, Dict[str, torch.Tensor]]:
     """One refinement pass. Returns (new params, new alive, reset stats,
     info) with info = {moment_zero_mask (N,) bool, reset_opacity_moments
-    bool, num_culled, num_split, num_dup, num_alive}. `split_eps`: the two
+    bool, num_culled, num_split, num_dup, num_alive, num_dropped}, where
+    num_dropped counts the new rows that found no free slot. `split_eps`: the two
     (N, 3) standard-normal draws of the split samples; drawn from
     `generator` when not given."""
     capacity = alive.shape[0]
@@ -192,12 +194,14 @@ def refine(
     num_free = (~new_alive).sum()
     out = {k: v.clone() for k, v in params.items()}
     n_alloc = torch.zeros((), dtype=torch.long, device=dev)
+    n_new = torch.zeros((), dtype=torch.long, device=dev)
     for sample_vals, valid in (
         (split_sample(split_eps[0]), splits_valid),
         (split_sample(split_eps[1]), splits_valid),
         (params, dups_valid),
     ):
         n_alloc = n_alloc + _scatter_new(out, new_alive, sample_vals, valid, free_idx, n_alloc, num_free)
+        n_new = n_new + valid.sum()
 
     # new slots need zeroed moments: the first n_alloc entries of free_idx
     slot_rank = torch.argsort(free_idx)
@@ -216,6 +220,7 @@ def refine(
         "num_split": splits.sum(),
         "num_dup": dups.sum(),
         "num_alive": new_alive.sum(),
+        "num_dropped": n_new - n_alloc,
     }
     return out, new_alive, DensifyState.create(capacity, device=dev), info
 

@@ -29,9 +29,12 @@ CPU, where the operations are synchronous. A mark never touches data.
 Counters. `add` and `put` keep numbers by name (and by key). The trainer
 keeps the phase times (`step.phase_ms` by phase, `step.phase_steps`), the
 replays and kernel nodes of each step graph (`step.replays`,
-`step.kernel_nodes` by graph) and, at each chunk's end, the field
-kernels' live rows and the rows of the blocks they run
-(`field.live_rows`, `field.block_rows`).
+`step.kernel_nodes` by graph), at each chunk's end the field kernels'
+live rows and the rows of the blocks they run (`field.live_rows`,
+`field.block_rows`), and for each refinement inside a chunk its counts
+and device time (`refine.count`; `refine.split`, `refine.dup`,
+`refine.culled`, `refine.alive`, `refine.dropped` and `refine.device_ms`
+by the refinement's step), timed between two `stamp`s.
 
 `recorded()` returns the spans and counters as plain Python data. CUDA work
 is asynchronous: a span times what the host does in it (on the card, the
@@ -246,6 +249,34 @@ def flush_marks() -> None:
             _add_phases(ms, 1.0)
         _POOL.extend(ev for _, ev in marks)
     _UNREAD = waiting
+
+
+def stamp(device: torch.device):
+    """A point on `device`'s timeline, as an eager mark takes it: a timing
+    event from the pool recorded on the card's current stream, or the host
+    clock (ns) on the CPU. `elapsed_ms` reads a pair, `release` returns
+    stamps that will not be read."""
+    if device.type != "cuda":
+        return time.perf_counter_ns()
+    ev = _POOL.pop() if _POOL else torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def elapsed_ms(a, b) -> float:
+    """ms from stamp `a` to stamp `b`, once both are complete (after a
+    synchronisation the caller makes anyway); their events go back to the
+    pool."""
+    if isinstance(a, int):
+        return (b - a) * 1e-6
+    ms = a.elapsed_time(b)
+    release(a, b)
+    return ms
+
+
+def release(*stamps) -> None:
+    """Return stamps that will not be read to the pool."""
+    _POOL.extend(s for s in stamps if not isinstance(s, int))
 
 
 def graph_phases(marks: list) -> Optional[Dict[str, float]]:

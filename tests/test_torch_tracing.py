@@ -24,6 +24,7 @@ card it runs as
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_tracing.py
 """
 
+import contextlib
 import json
 
 import numpy as np
@@ -153,6 +154,47 @@ def test_spans_tile_each_chunk(dataset, tmp_path, stage):
         extent = max(s["end_ns"] for s in spans) - spans[0]["start_ns"]
         gaps = sum(max(b["start_ns"] - a["end_ns"], 0) for a, b in zip(spans, spans[1:]))
         assert gaps <= 0.05 * extent, (chunk, gaps, extent, [s["name"] for s in spans])
+
+
+def test_chunk_refinement_records_its_counts(dataset, tmp_path):
+    """A chunk of 3 steps from step 12 refining at step 12 (densifying:
+    12 mod 60 is past the frames and the cadence), every slot live (the
+    random init's rows repeated), so that the splits overflow and some rows
+    are culled: its counters equal what `refine_at` returned, its device
+    ms is positive; unrecorded, no refine counter."""
+    densify = dict(refine_start=3, refine_every=3, reset_alpha_every=20, densify_grad_thresh=0.0,
+                   cull_alpha_thresh=0.1)
+    returned = []
+    for record in (False, True):
+        t = _trainer(dataset, tmp_path / str(record), 3, densify=densify)
+        st = t.state
+        with torch.no_grad():
+            rows = torch.arange(st.alive.shape[0]) % int(st.alive.sum())
+            for v in st.params.values():
+                v.copy_(v[rows])
+            st.alive.fill_(True)
+        st.step = 12
+        inner = t._refine_at
+
+        def refine_at(step, last_size):
+            out = inner(step, last_size)
+            if out is not None:
+                returned.append((step, {k: int(v) for k, v in out.items()}))
+            return out
+
+        t._refine_at = refine_at
+        with profiling.recording() if record else contextlib.nullcontext():
+            t.train(3)
+        counters = profiling.recorded()["counters"]
+        if not record:
+            assert not [k for k in counters if k.startswith("refine.")]
+    assert len(returned) == 2 and returned[0] == returned[1] and returned[1][0] == 12
+    got = returned[1][1]
+    assert got["num_split"] > 0 and got["num_culled"] > 0 and got["num_dropped"] > 0, got
+    assert counters["refine.count"] == 1
+    for name in ("split", "dup", "culled", "alive", "dropped"):
+        assert counters[f"refine.{name}"] == {"12": got[f"num_{name}"]}, name
+    assert counters["refine.device_ms"]["12"] > 0
 
 
 @pytest.mark.parametrize("stage,chunk", [(1, 3), (2, 3), (1, 0), (2, 0)])
